@@ -8,17 +8,18 @@ plain PyTorch versions when ``device="cpu"`` is asked for.
 Layer map (module names mirror the JAX package):
 
 - ``_backend``  device resolution and a toolchain report.
-- ``host``      the host layer reused from recgraph_tpu (see below).
+- ``io``, ``scoring``, ``graph``, ``oracle``, ``native``
+                the host layer: copies of the JAX package's framework-free
+                modules of the same names, and the native GAF emitter and
+                FASTA reader (``csrc/host/``).
 - ``ops``       encode, the POA fills (plain torch + CUDA kernels), the
                 on-device traceback walk and the chunk pipeline.
 - ``align``     per-mode orchestration and GAF emission.
 - ``metrics``   phase timers and kernel launch counters.
 - ``cli``       the RecGraph-compatible command line.
 
-The framework-free host layer (``recgraph_tpu.io``, ``.scoring``,
-``.graph.poagraph``, ``.native``, ``.oracle``) is reused by import,
-through ``host`` alone.
-Ported so far: POA modes 0 and 1 with reads shorter than 1,024 bases.
+The port imports nothing of ``recgraph_tpu``; only its tests import both.
+Ported so far: POA modes 0-3 at every read length.
 """
 
 __version__ = "0.1.0"

@@ -1,20 +1,21 @@
 """Per-mode orchestration: parse once, align every read, emit GAF.
 
 Counterpart of ``recgraph_tpu/align/pipeline.py`` (``Options`` and
-``_bta`` :37-66, ``_emit_records``/``_emit_poa`` :115-174, ``run``
-:202-225, the POA branch of ``_run_host`` :323-412 and
-``_run_poa_batched`` :534-585) for modes 0 and 1.  Engines:
+``_bta`` :37-66, ``_poa_align`` :69-90, ``_emit_records``/``_emit_poa``
+:115-174, ``run`` :202-225, the POA branch of ``_run_host`` :323-412 and
+``_run_poa_batched`` :534-585) for modes 0-3.  Engines:
 
 - ``engine="torch"``  the port's fills and walks on ``Options.device``
   (CUDA kernels on ``"cuda"``, their plain versions on ``"cpu"``);
-- ``engine="oracle"`` the scalar spec, ``recgraph_tpu.oracle.poa``.
+- ``engine="oracle"`` the scalar spec, ``oracle.poa``.
 
 Reference behaviours kept at this layer: bta = b + f * len('$'+read)
-with a saturating cast (main.rs:57); amb-strand retries (mode 0 on a
-negative score, keeping the reverse only when strictly better; mode 1
-always, keeping the *forward* record when its score is lower — a
-reference inversion, main.rs:160-164); 1-based read numbers for the
-GAF writer.
+with a saturating cast (main.rs:57); gap penalties o = -gap_open and
+e = -gap_extension; the band warning for modes 0 and 2; amb-strand
+retries (modes 0/2 on a negative score and modes 1/3 always, keeping
+the reverse only when strictly better — except mode 1, which keeps the
+*forward* record when its score is lower, a reference inversion,
+main.rs:160-164); 1-based read numbers for the GAF writer.
 """
 
 from __future__ import annotations
@@ -26,21 +27,24 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .. import _backend
-from ..host import (
-    GafWriter, PoaGraph, ScoreMatrix, fasta, gfa, native, oracle_gaf_emit, oracle_poa,
-)
-from ..metrics import fallback_summary, phase, phase_summary
+from .. import _backend, native
+from ..graph.poagraph import PoaGraph
+from ..io import fasta, gfa
+from ..io.gaf import GafWriter
+from ..oracle import gaf_emit as oracle_gaf_emit
+from ..oracle import poa as oracle_poa
+from ..metrics import phase, phase_summary
 from ..ops import poa_engine
 from ..ops.poa_engine import WalkState
+from ..scoring import ScoreMatrix
 
-PORTED_MODES = (0, 1)
+PORTED_MODES = (0, 1, 2, 3)
 ENGINES = ("torch", "oracle")
 _BAND_WARNING = "Band length probably too short, maybe try with larger b and f"
 
 
 def not_ported(mode: int) -> NotImplementedError:
-    item = {2: 10, 3: 10, 4: 12, 5: 12, 6: 14, 7: 14, 8: 13, 9: 13}.get(mode)
+    item = {4: 12, 5: 12, 6: 14, 7: 14, 8: 13, 9: 13}.get(mode)
     where = f"ROADMAP queue 1, item {item}" if item else "modes are 0..9"
     return NotImplementedError(f"mode {mode}: not yet ported ({where})")
 
@@ -120,11 +124,10 @@ def _emit_records(mode, states, sequences, names, amb_mode, g):
         tails = native.gaf_emit_poa_walk_batch(
             dirs2d, rows2d, params, _hofp_ids(g), amb_mode
         )
-        if tails is not None:
-            return [
-                _RawGafLine(f"{names[i]}\t{t}") if t is not None else one(i)
-                for i, t in enumerate(tails)
-            ]
+        return [
+            _RawGafLine(f"{names[i]}\t{t}") if t is not None else one(i)
+            for i, t in enumerate(tails)
+        ]
     return [one(i) for i in range(n)]
 
 
@@ -139,13 +142,17 @@ def _emit_poa(mode, st, seq, name, amb_mode, g):
         if tail is None:
             raise RuntimeError(f"native walk emitter rejected read {name!r}")
         return _RawGafLine(f"{name}\t{tail}")
-    if mode == 0:
-        return oracle_gaf_emit.gaf_of_global_abpoa(st, seq, name, amb_mode, g.handle_pos)
-    return oracle_gaf_emit.gaf_of_local_poa(st, seq, name, amb_mode, g.handle_pos)
+    emit = (
+        oracle_gaf_emit.gaf_of_global_abpoa,
+        oracle_gaf_emit.gaf_of_local_poa,
+        oracle_gaf_emit.gaf_of_gap_abpoa,
+        oracle_gaf_emit.gaf_of_gap_local_poa,
+    )[mode]
+    return emit(st, seq, name, amb_mode, g.handle_pos)
 
 
 def run(opts: Options) -> None:
-    """Top-level orchestration (reference main.rs:25-329), modes 0/1.
+    """Top-level orchestration (reference main.rs:25-329), modes 0-3.
 
     RECGRAPH_METRICS=1 prints reads/s, cells/s and the phase breakdown
     to stderr.  Diagnostics go to stderr so the GAF stream on stdout
@@ -182,7 +189,7 @@ def run(opts: Options) -> None:
         print(
             f"metrics: device={opts.device} reads={len(sequences)} "
             f"reads/s={len(sequences) / dt:.1f} cells/s={cells / dt:.3e} "
-            f"wall_s={dt:.3f} {fallback_summary()}",
+            f"wall_s={dt:.3f}",
             file=sys.stderr,
         )
         ps = phase_summary()
@@ -190,31 +197,46 @@ def run(opts: Options) -> None:
             print(ps, file=sys.stderr)
 
 
+def _retry(mode, score):
+    """Whether a read is aligned again on the reverse strand
+    (main.rs:82-101,160-164,188-209,245-249)."""
+    return mode in (1, 3) or score < 0
+
+
+def _keep_reverse(mode, fwd_score, rev_score):
+    """Whether the reverse-strand record replaces the forward one; mode 1
+    keeps the reference's inversion (main.rs:160-164)."""
+    if mode == 1:
+        return not fwd_score < rev_score
+    return rev_score > fwd_score
+
+
 def _run_poa_oracle(opts, mode, sequences, names, g, sm, writer, rev_graph):
     """Per-read scalar oracle (the spec; slow)."""
+    o, e = -opts.gap_open, -opts.gap_extension
 
     def align(seq, graph):
         if mode == 0:
-            return oracle_poa.global_banded(seq, graph, sm, _bta(opts, seq))
-        return oracle_poa.local_full(seq, graph, sm)
+            st = oracle_poa.global_banded(seq, graph, sm, _bta(opts, seq))
+        elif mode == 1:
+            st = oracle_poa.local_full(seq, graph, sm)
+        elif mode == 2:
+            st = oracle_poa.gap_global_banded(seq, graph, sm, o, e, _bta(opts, seq))
+        else:
+            st = oracle_poa.gap_local_full(seq, graph, sm, o, e)
+        if mode in (0, 2) and not st.band_check_ok:
+            print(_BAND_WARNING, file=sys.stderr)
+        return st
 
     for i, seq in enumerate(sequences):
         st = align(seq, g)
-        if mode == 0 and not st.band_check_ok:
-            print(_BAND_WARNING, file=sys.stderr)
         record = _emit_poa(mode, st, seq, names[i], False, g)
-        if opts.amb_strand and (mode == 1 or st.score < 0):
+        if opts.amb_strand and _retry(mode, st.score):
             rg = rev_graph()
             rseq = fasta.rev_and_compl(seq)
             st_r = align(rseq, rg)
-            if mode == 0 and not st_r.band_check_ok:
-                print(_BAND_WARNING, file=sys.stderr)
-            rec_r = _emit_poa(mode, st_r, rseq, names[i], True, rg)
-            if mode == 1:
-                # reference inversion preserved (main.rs:160-164)
-                record = record if st.score < st_r.score else rec_r
-            else:
-                record = rec_r if st_r.score > st.score else record
+            if _keep_reverse(mode, st.score, st_r.score):
+                record = _emit_poa(mode, st_r, rseq, names[i], True, rg)
         writer.write(record.to_string(), i + 1)
 
 
@@ -222,38 +244,30 @@ def _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph):
     """Batched device path: fill + walk on the device, native emission.
 
     Ambiguous-strand retries run as one reverse-graph batch over just
-    the reads that need it (mode 1 always, mode 0 on a negative score).
+    the reads that need it.
     """
-    if native.load() is None:
-        raise RuntimeError(
-            "the native GAF emitter (native/librecgraph_host.so) is unavailable; "
-            "build it with `make -C native`"
-        )
+    o, e = -opts.gap_open, -opts.gap_extension
     btas = [_bta(opts, s) for s in sequences]
-    states = poa_engine.run_batch_walks(mode, sequences, g, sm, btas, opts.device)
-    for st in states if mode == 0 else ():
+    states = poa_engine.run_batch_walks(mode, sequences, g, sm, o, e, btas, opts.device)
+    for st in states if mode in (0, 2) else ():
         if not st.band_check_ok:
             print(_BAND_WARNING, file=sys.stderr)
     with phase("emit"):
         records = _emit_records(mode, states, sequences, names, False, g)
 
     if opts.amb_strand:
-        retry = [i for i in range(len(sequences)) if mode == 1 or states[i].score < 0]
+        retry = [i for i in range(len(sequences)) if _retry(mode, states[i].score)]
         if retry:
             rg = rev_graph()
             rseqs = [fasta.rev_and_compl(sequences[i]) for i in retry]
             rbtas = [btas[i] for i in retry]
-            rstates = poa_engine.run_batch_walks(mode, rseqs, rg, sm, rbtas, opts.device)
+            rstates = poa_engine.run_batch_walks(
+                mode, rseqs, rg, sm, o, e, rbtas, opts.device
+            )
             with phase("emit"):
                 for k, i in enumerate(retry):
-                    st_r = rstates[k]
-                    rec_r = _emit_poa(mode, st_r, rseqs[k], names[i], True, rg)
-                    if mode == 1:
-                        # reference inversion preserved (main.rs:160-164)
-                        keep = states[i].score < st_r.score
-                        records[i] = records[i] if keep else rec_r
-                    elif st_r.score > states[i].score:
-                        records[i] = rec_r
+                    if _keep_reverse(mode, states[i].score, rstates[k].score):
+                        records[i] = _emit_poa(mode, rstates[k], rseqs[k], names[i], True, rg)
 
     with phase("write"):
         for i, rec in enumerate(records):

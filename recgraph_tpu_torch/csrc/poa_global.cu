@@ -1,213 +1,24 @@
-// Mode-0 banded global POA fill (global_abpoa.rs:260-427) for Hopper.
+// Mode-0 banded global POA fill at full width (K1).
 //
 // Replaces the TPU kernel recgraph_tpu/ops/pallas_poa_global2.py:477
-// fill_global_v2 and computes what poa_engine._fill_global
-// (recgraph_tpu/ops/poa_engine.py:149-297) computes, bit for bit:
-// adaptive band from the predecessors' best columns (utils.rs:17-72),
-// first-best U/D over predecessors in ascending order, the in-row
-// (max,+) prefix chain, packed pred*16+dir cells with tie order
-// D >= U >= L, and the first-strict-max sink pick.
-//
-// Design: one thread block per read, one thread per read column; the
-// loop over graph rows 0..n-2 runs inside the block.  The in-row
-// dependency m[j] = G[j] + cummax(A - G)[j] is a block-wide inclusive
-// max scan (warp shuffles + shared memory); the rightmost in-band argmax
-// is a block max over (value, column) keys.  Predecessor rows, band
-// bounds and best columns are read back from device-memory scratch the
-// wrapper allocates, so any predecessor span works without a gate.
-//
-// What bounds it on this card: each row is a chain of dependent steps
-// separated by block barriers (scan, argmax, the row's visibility to the
-// next row), so one block is latency-bound on its per-row
-// __syncthreads; throughput comes from running many reads (blocks) per
-// SM.  Memory traffic is 4 bytes per cell of packed output plus 4 bytes
-// per cell of score scratch written, and the predecessors' cells read
-// back (mostly from L2, since predecessors are recent rows).  Later
-// levers: a shared-memory ring of predecessor rows indexed by end rank
-// (PoaDeviceGraph.erank), fewer barriers per row, several reads per
-// block for short reads.
-//
-// The kernel allocates nothing, does not synchronise with the host and
-// runs on the stream it is given.
+// fill_global_v2.  The kernel body, its design and what bounds it are in
+// poa_global.cuh; here every row stores all Lp columns (ws = 0, W = Lp).
 
-#include "poa_common.cuh"
-
-namespace rgt {
-
-__global__ void __launch_bounds__(MAX_THREADS)
-poa_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
-                  const int* __restrict__ bta_, const int* __restrict__ table,
-                  const int* __restrict__ codes, const int* __restrict__ pred_idx,
-                  const int* __restrict__ min_pred, const int* __restrict__ r_values,
-                  const int* __restrict__ cand, int n_cand, int n, int Pm, int Lp,
-                  int* __restrict__ m, int* __restrict__ bsp, int* __restrict__ score,
-                  int* __restrict__ last_row, int* __restrict__ last_col,
-                  int* __restrict__ packed, int* __restrict__ lefts,
-                  int* __restrict__ rights) {
-  __shared__ int s_table[NCODE * NCODE];
-  __shared__ int s_row[MAX_THREADS];
-  __shared__ BlockScratch s;
-
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const bool live = j < Lp;
-  for (int t = j; t < NCODE * NCODE; t += blockDim.x) s_table[t] = table[t];
-  __syncthreads();
-
-  const int L = L_[b];
-  const int bta = bta_[b];
-  const int sj = live ? seq[(size_t)b * Lp + j] : GAP;
-  const int gseq = s_table[sj * NCODE + GAP];    // sm(seq[j], '-')
-  const int Gseq = block_inclusive_sum(live ? gseq : 0, s);
-  const int Gcol0 = block_inclusive_sum(live ? s_table[GAP * NCODE + sj] : 0, s);
-
-  int* mb = m + (size_t)b * n * Lp;
-  int* pb = packed + (size_t)b * n * Lp;
-  int* lb = lefts + (size_t)b * n;
-  int* rb = rights + (size_t)b * n;
-  int* bb = bsp + (size_t)b * n;
-
-  for (int i = 0; i < n - 1; ++i) {
-    const int code = codes[i];
-    const int minp = min_pred[i];
-    const int r = r_values[i];
-    const int* pi = pred_idx + (size_t)i * Pm;
-    const int gnode = s_table[code * NCODE + GAP];
-
-    // adaptive band from the predecessors' best columns
-    int ms = 0, me = 0;
-    if (i > 0) {
-      int lo = 1 << 28, hi = NEG;
-      for (int k = 0; k < Pm; ++k) {
-        const int p = pi[k];
-        if (p < 0) continue;
-        const int v = bb[p];
-        lo = min(lo, v);
-        hi = max(hi, v);
-      }
-      ms = lo + 1;
-      me = hi + 1;
-    }
-    const int left = max(0, min(ms, L - r - bta));
-    const int right = L > r ? min(L, max(me, L - r) + bta) : min(L, me + bta);
-    const bool in_band = live && left <= j && j < right;
-    const bool is_left = j == left;
-
-    // U / D candidates: first best over predecessors in ascending order
-    int u_best = NEG, u_pred = 0, d_best = NEG, d_pred = 0;
-    if (live) {
-      for (int k = 0; k < Pm; ++k) {
-        const int p = pi[k];
-        if (p < 0) continue;
-        const int lp = lb[p], rp = rb[p];
-        const int* mp = mb + (size_t)p * Lp;
-        if (lp <= j && j < rp) {
-          const int v = mp[j];
-          if (v > u_best) { u_best = v; u_pred = p; }
-        }
-        if (lp < j && j <= rp) {
-          const int v = mp[j - 1];
-          if (v > d_best) { d_best = v; d_pred = p; }
-        }
-      }
-    }
-    const bool has_u = u_best > NEG / 2;
-    const int u_val = has_u ? u_best + gnode : gnode * (i + j);
-    if (!has_u) u_pred = minp;
-    const bool has_d = d_best > NEG / 2;
-    const int d_val = has_d ? d_best + s_table[code * NCODE + sj] : gnode * (i + left);
-    if (!has_d) d_pred = minp;
-
-    // chain restart values and the (max,+) prefix scan
-    const int l_fb = gseq * (i + left);  // used at column `left` only
-    int A = max(d_val, u_val);
-    if (i == 0) {
-      A = j == 0 ? 0 : NEG;
-    } else if (is_left) {
-      if (left == 0) {
-        const int lm = min(lb[minp], Lp - 1);
-        A = mb[(size_t)minp * Lp + lm] + gnode;
-      } else {
-        A = max(A, l_fb);
-      }
-    }
-    if (!in_band) A = NEG;
-    const int G = i == 0 ? Gcol0 : Gseq;
-    int mrow = G + block_inclusive_max(A - G, s);
-    if (!in_band) mrow = NEG;
-
-    // rightmost in-band argmax -> best scoring column of this row
-    const long long best = block_max_key(live ? make_key(mrow, (unsigned)j) : LLONG_MIN, s);
-
-    if (live) s_row[j] = mrow;
-    __syncthreads();
-    if (live) {
-      int l_val = (j > 0 ? s_row[j - 1] : NEG) + gseq;
-      if (is_left) l_val = left == 0 ? NEG : l_fb;
-      int dcode, psel;
-      if (i == 0) {
-        dcode = j == 0 ? DIR_O : DIR_L;
-        psel = 0;
-      } else if (is_left && left == 0) {
-        dcode = DIR_U;  // base case (global_abpoa.rs:74-77)
-        psel = minp;
-      } else {
-        const bool d_ge_u = d_val >= u_val;
-        if (d_ge_u && d_val >= l_val) {
-          dcode = sj == code ? DIR_D : DIR_LOW_D;
-          psel = d_pred;
-        } else if (!d_ge_u && u_val >= l_val) {
-          dcode = DIR_U;
-          psel = u_pred;
-        } else {
-          dcode = DIR_L;
-          psel = j > left ? i : minp;
-        }
-      }
-      pb[(size_t)i * Lp + j] = in_band ? psel * 16 + dcode : 0;
-      mb[(size_t)i * Lp + j] = mrow;
-    }
-    if (j == 0) {
-      lb[i] = left;
-      rb[i] = right;
-      bb[i] = (int)key_tie(best);
-    }
-    __syncthreads();
-  }
-
-  // row n-1 (the sink F) is never filled
-  if (live) pb[(size_t)(n - 1) * Lp + j] = 0;
-  if (j == 0) {
-    lb[n - 1] = 0;
-    rb[n - 1] = 0;
-    // best over F's predecessors, first strict max, row n-2 seeded
-    int bv = 0, br = 0, bc = 0;
-    for (int k = 0; k < n_cand; ++k) {
-      const int c = cand[k];
-      const int col = rb[c] - 1;
-      const int v = mb[(size_t)c * Lp + (col < 0 ? col + Lp : col)];
-      if (k == 0 || v > bv) { bv = v; br = c; bc = col; }
-    }
-    score[b] = bv;
-    last_row[b] = br;
-    last_col[b] = bc;
-  }
-}
-
-}  // namespace rgt
+#include "poa_global.cuh"
 
 extern "C" int rgt_poa_global_fill(
     const int* seq, const int* L, const int* bta, const int* table,
     const int* codes, const int* pred_idx, const int* min_pred,
     const int* r_values, const int* cand, int n_cand, int B, int n, int Pm,
     int Lp, int* m, int* bsp, int* score, int* last_row, int* last_col,
-    int* packed, int* lefts, int* rights, void* stream) {
-  const int threads = (Lp + 31) / 32 * 32;
-  if (B < 1 || n < 3 || Pm < 1 || Lp < 1 || threads > rgt::MAX_THREADS || n_cand < 1)
+    int* packed, int* lefts, int* rights, int* wss, void* stream) {
+  if (B < 1 || n < 3 || Pm < 1 || Lp < 1 || n_cand < 1)
     return (int)cudaErrorInvalidValue;
-  rgt::poa_global_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-      seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand, n_cand, n,
-      Pm, Lp, m, bsp, score, last_row, last_col, packed, lefts, rights);
+  rgt::poa_global_kernel<false>
+      <<<B, rgt::block_threads(Lp), 0, (cudaStream_t)stream>>>(
+          seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand, n_cand,
+          n, Pm, Lp, Lp, m, bsp, score, last_row, last_col, packed, lefts,
+          rights, wss, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import random
 
-from .host import Gfa, GfaPath
+from .io.gfa import Gfa, GfaPath
 
 
 def random_gfa(rng: random.Random, n_nodes=14, n_paths=4, cover_all=False) -> Gfa:

@@ -5,7 +5,9 @@ listener (PyTorch runs eagerly; kernels build once, see
 ``ops/_kernels.py``).  ``device_wait`` is charged at the drain point,
 where the pipeline synchronises with the device.  Each kernel wrapper
 adds one to ``LAUNCHES[name]`` where it launches its kernel, so a run
-can show that it went through the kernels.
+can show that it went through the kernels, and to ``SHAPES[(name, B,
+n, Lp, W)]``, so that a run can hold each kernel to its plain version
+at the shapes the run gave it.
 """
 
 from __future__ import annotations
@@ -14,25 +16,15 @@ import contextlib
 import time
 from collections import Counter
 
-FALLBACKS: Counter = Counter()
 LAUNCHES: Counter = Counter()
+SHAPES: Counter = Counter()           # (kernel, reads, rows, Lp, stored width)
 PHASES: Counter = Counter()           # name -> exclusive seconds
 _stack: list[list] = []               # [name, child_seconds] frames
 
 
-def count_fallback(name: str) -> None:
-    FALLBACKS[name] += 1
-
-
-def fallback_summary() -> str:
-    if not FALLBACKS:
-        return "fallbacks=0"
-    items = " ".join(f"{k}={v}" for k, v in sorted(FALLBACKS.items()))
-    return f"fallbacks={sum(FALLBACKS.values())} ({items})"
-
-
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, shape: tuple) -> None:
     LAUNCHES[kernel] += 1
+    SHAPES[(kernel, *shape)] += 1
 
 
 @contextlib.contextmanager
@@ -52,11 +44,11 @@ def phase(name: str):
 
 
 def reset_phases() -> None:
-    """Zero every counter: phases, fallbacks and kernel launches."""
+    """Zero every counter: phases and kernel launches."""
     PHASES.clear()
     _stack.clear()
-    FALLBACKS.clear()
     LAUNCHES.clear()
+    SHAPES.clear()
 
 
 def phases_dict() -> dict:

@@ -4,8 +4,9 @@
 library with a plain C interface and loaded with ``ctypes``.  The build
 happens at first use, into ``recgraph_tpu_torch/build/``, keyed by a
 hash of the sources and flags, so a fresh checkout builds once and
-later runs reuse the library.  A build or launch failure raises; no
-caller falls back to a plain version.
+later runs reuse the library; each source compiles in its own ``nvcc``
+process, all started together, and one more links them.  A build or
+launch failure raises; no caller falls back to a plain version.
 
 Each C entry launches on the stream it is given (PyTorch's current
 stream) and returns ``cudaGetLastError()``; :func:`check` raises when it
@@ -22,26 +23,37 @@ import time
 
 import torch
 
-from .. import _backend
+from .. import _backend, metrics
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH + [
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
     # n_cand, B, n, Pm, Lp, m, bsp, score, last_row, last_col, packed,
-    # lefts, rights, stream
-    "rgt_poa_global_fill": [_P] * 9 + [_I] * 5 + [_P] * 8 + [_P],
+    # lefts, rights, wss, stream
+    "rgt_poa_global_fill": [_P] * 9 + [_I] * 5 + [_P] * 9 + [_P],
+    # ... Lp, W, m, bsp, score, last_row, last_col, packed, lefts,
+    # rights, wss, over, stream
+    "rgt_poa_global_win_fill": [_P] * 9 + [_I] * 6 + [_P] * 10 + [_P],
     # seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp, m,
     # best_val, best_i, best_j, packed, stream
     "rgt_poa_local_fill": [_P] * 6 + [_I] * 4 + [_P] * 5 + [_P],
+    # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
+    # n_cand, B, n, Pm, Lp, o, e, m, y, bsp, score, last_row, last_col,
+    # packed, packed_x, packed_y, lefts, rights, wss, stream
+    "rgt_poa_gap_global_fill": [_P] * 9 + [_I] * 7 + [_P] * 12 + [_P],
+    # ... Lp, W, o, e, m, y, bsp, score, last_row, last_col, packed,
+    # packed_x, packed_y, lefts, rights, wss, over, stream
+    "rgt_poa_gap_global_win_fill": [_P] * 9 + [_I] * 8 + [_P] * 13 + [_P],
+    # seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp, o, e, m,
+    # y, best_val, best_i, best_j, packed, packed_x, packed_y, stream
+    "rgt_poa_gap_local_fill": [_P] * 6 + [_I] * 6 + [_P] * 8 + [_P],
 }
 
 _lib = None
@@ -72,18 +84,29 @@ def build() -> str:
         raise RuntimeError("nvcc not found (CUDA_HOME, PATH, /usr/local/cuda)")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
-    cus = [os.path.join(CSRC, f) for f in _sources() if f.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cus]
+    cus = [f for f in _sources() if f.endswith(".cu")]
+    objs = [f"{tmp}.{f}.o" for f in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, f)]
+            for f, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    rcs = [p.returncode for p in procs]
+    if not any(rcs):
+        cmds.append([nvcc, *ARCH, "-shared", "-o", tmp, *objs])
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        rcs.append(link.returncode)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
+    build_info["log"] = "\n".join(" ".join(c) + "\n" + lg for c, lg in zip(cmds, logs))
     with open(so[:-3] + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + build_info["log"])
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{build_info['log'][-6000:]}"
-        )
+        fh.write(build_info["log"])
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if any(rcs):
+        raise RuntimeError(f"nvcc failed (codes {rcs}):\n{build_info['log'][-6000:]}")
     os.replace(tmp, so)
     return so
 
@@ -121,3 +144,50 @@ def check_tensors(kernel: str, device, **tensors) -> None:
             raise ValueError(f"{kernel}: {name} has dtype {t.dtype}, expected int32")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def graph_args(dg):
+    """Per-graph int32 arrays the kernels take: predecessor slots with -1
+    padding, the sink candidates (row n-2, then F's predecessors) and the
+    node-start flags."""
+    def build():
+        pidx = torch.where(dg.pred_mask, dg.pred_idx, -1).to(torch.int32).contiguous()
+        cand = torch.tensor(
+            (dg.n - 2,) + tuple(dg.sink_rows), dtype=torch.int32, device=dg.device
+        )
+        return pidx, cand, dg.node_start.to(torch.int32).contiguous()
+
+    return dg.cached("_cuda_graph_args", build)
+
+
+def check_inputs(kernel, dg, table, seq, L, bta=None):
+    """The device, dtype, layout and shape checks of the POA wrappers;
+    returns the graph arguments (predecessor slots, sink candidates,
+    node-start flags)."""
+    dev = seq.device
+    B = seq.shape[0]
+    pidx, cand, node_start = graph_args(dg)
+    extra = {} if bta is None else {"bta": bta}
+    check_tensors(
+        kernel, dev, seq=seq, L=L, table=table, codes=dg.codes, pred_idx=pidx,
+        min_pred=dg.min_pred, r_values=dg.r_values, cand=cand,
+        node_start=node_start, **extra,
+    )
+    if table.shape != (7, 7) or L.shape != (B,) or (bta is not None and bta.shape != (B,)):
+        raise ValueError(f"{kernel}: bad shapes table {tuple(table.shape)}, "
+                         f"L {tuple(L.shape)} for B={B}")
+    return pidx, cand, node_start
+
+
+def launch(kernel: str, shape: tuple, dev, *args) -> None:
+    """Call the C entry ``rgt_<kernel>_fill`` on ``dev``'s current stream,
+    raise on a launch error, and count the launch with its ``shape``
+    (reads, rows, Lp, stored width).  Tensor arguments pass as device
+    pointers."""
+    lib = load()
+    fn = getattr(lib, f"rgt_{kernel}_fill")
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        rc = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, kernel)
+    metrics.count_launch(kernel, shape)

@@ -3,67 +3,39 @@
 Replaces ``recgraph_tpu/ops/pallas_poa_global2.py:477 fill_global_v2``.
 Its plain version is ``poa_engine.fill_global_plain``; both return
 (score, last_row, last_col_abs, packed int32[B, n, Lp], lefts, rights)
-and agree bit for bit.  ``metrics.LAUNCHES["poa_global"]`` counts the
-launches.
+and agree bit for bit, at any read length.
+``metrics.LAUNCHES["poa_global"]`` counts the launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import metrics
 from . import _kernels
 
 KERNEL = "poa_global"
 SOURCE = "recgraph_tpu_torch/csrc/poa_global.cu"
 REPLACES = "recgraph_tpu/ops/pallas_poa_global2.py:477"
-MAX_LP = 1024  # one thread per column, at most 1024 threads per block
-
-
-def _graph_args(dg):
-    def build():
-        pidx = torch.where(dg.pred_mask, dg.pred_idx, -1).to(torch.int32).contiguous()
-        cand = torch.tensor(
-            (dg.n - 2,) + tuple(dg.sink_rows), dtype=torch.int32, device=dg.device
-        )
-        return pidx, cand
-
-    return dg.cached("_cuda_global_args", build)
 
 
 def fill_global_cuda(dg, table, seq, L, bta):
     """Launch the mode-0 fill for a read batch on the tensors' GPU."""
     dev = seq.device
     B, Lp = seq.shape
-    n, Pm = dg.n, dg.max_preds
-    if Lp > MAX_LP:
-        raise ValueError(f"{KERNEL}: padded read length {Lp} > {MAX_LP}")
-    pidx, cand = _graph_args(dg)
-    _kernels.check_tensors(
-        KERNEL, dev, seq=seq, L=L, bta=bta, table=table, codes=dg.codes,
-        pred_idx=pidx, min_pred=dg.min_pred, r_values=dg.r_values, cand=cand,
-    )
-    if table.shape != (7, 7) or L.shape != (B,) or bta.shape != (B,):
-        raise ValueError(f"{KERNEL}: bad shapes table {tuple(table.shape)}, "
-                         f"L {tuple(L.shape)}, bta {tuple(bta.shape)} for B={B}")
+    n = dg.n
+    pidx, cand, _ = _kernels.check_inputs(KERNEL, dg, table, seq, L, bta)
     i32 = dict(dtype=torch.int32, device=dev)
     m = torch.empty((B, n, Lp), **i32)       # score scratch
     bsp = torch.empty((B, n), **i32)         # best column per row
-    score = torch.empty(B, **i32)
-    last_row = torch.empty(B, **i32)
-    last_col = torch.empty(B, **i32)
+    wss = torch.empty((B, n), **i32)         # window starts (all 0 here)
+    score, last_row, last_col = (torch.empty(B, **i32) for _ in range(3))
     packed = torch.empty((B, n, Lp), **i32)
     lefts = torch.empty((B, n), **i32)
     rights = torch.empty((B, n), **i32)
-    p = torch.Tensor.data_ptr
-    lib = _kernels.load()
-    with torch.cuda.device(dev):
-        rc = lib.rgt_poa_global_fill(
-            p(seq), p(L), p(bta), p(table), p(dg.codes), p(pidx), p(dg.min_pred),
-            p(dg.r_values), p(cand), int(cand.numel()), B, n, Pm, Lp,
-            p(m), p(bsp), p(score), p(last_row), p(last_col), p(packed),
-            p(lefts), p(rights), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _kernels.check(rc, KERNEL)
-    metrics.count_launch(KERNEL)
+    _kernels.launch(
+        KERNEL, (B, n, Lp, Lp), dev,
+        seq, L, bta, table, dg.codes, pidx, dg.min_pred, dg.r_values,
+        cand, int(cand.numel()), B, n, dg.max_preds, Lp, m, bsp, score, last_row,
+        last_col, packed, lefts, rights, wss,
+    )
     return score, last_row, last_col, packed, lefts, rights

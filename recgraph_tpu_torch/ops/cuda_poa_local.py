@@ -3,59 +3,34 @@
 Replaces ``recgraph_tpu/ops/pallas_poa_v5.py:251 fill_local_v5``.  Its
 plain version is ``poa_engine.fill_local_plain``; both return
 (best_val, best_i, best_j, packed int32[B, n, Lp]) and agree bit for
-bit.  ``metrics.LAUNCHES["poa_local"]`` counts the launches.
+bit, at any read length.  ``metrics.LAUNCHES["poa_local"]`` counts the
+launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import metrics
 from . import _kernels
 
 KERNEL = "poa_local"
 SOURCE = "recgraph_tpu_torch/csrc/poa_local.cu"
 REPLACES = "recgraph_tpu/ops/pallas_poa_v5.py:251"
-MAX_LP = 1024  # one thread per column, at most 1024 threads per block
-
-
-def _graph_args(dg):
-    def build():
-        pidx = torch.where(dg.pred_mask, dg.pred_idx, -1).to(torch.int32).contiguous()
-        return pidx, dg.node_start.to(torch.int32).contiguous()
-
-    return dg.cached("_cuda_local_args", build)
 
 
 def fill_local_cuda(dg, table, seq, L):
     """Launch the mode-1 fill for a read batch on the tensors' GPU."""
     dev = seq.device
     B, Lp = seq.shape
-    n, Pm = dg.n, dg.max_preds
-    if Lp > MAX_LP:
-        raise ValueError(f"{KERNEL}: padded read length {Lp} > {MAX_LP}")
-    pidx, node_start = _graph_args(dg)
-    _kernels.check_tensors(
-        KERNEL, dev, seq=seq, L=L, table=table, codes=dg.codes,
-        node_start=node_start, pred_idx=pidx,
-    )
-    if table.shape != (7, 7) or L.shape != (B,):
-        raise ValueError(f"{KERNEL}: bad shapes table {tuple(table.shape)}, "
-                         f"L {tuple(L.shape)} for B={B}")
+    n = dg.n
+    pidx, _, node_start = _kernels.check_inputs(KERNEL, dg, table, seq, L)
     i32 = dict(dtype=torch.int32, device=dev)
     m = torch.empty((B, n, Lp), **i32)       # score scratch
-    best_val = torch.empty(B, **i32)
-    best_i = torch.empty(B, **i32)
-    best_j = torch.empty(B, **i32)
+    best_val, best_i, best_j = (torch.empty(B, **i32) for _ in range(3))
     packed = torch.empty((B, n, Lp), **i32)
-    p = torch.Tensor.data_ptr
-    lib = _kernels.load()
-    with torch.cuda.device(dev):
-        rc = lib.rgt_poa_local_fill(
-            p(seq), p(L), p(table), p(dg.codes), p(node_start), p(pidx),
-            B, n, Pm, Lp, p(m), p(best_val), p(best_i), p(best_j), p(packed),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _kernels.check(rc, KERNEL)
-    metrics.count_launch(KERNEL)
+    _kernels.launch(
+        KERNEL, (B, n, Lp, Lp), dev,
+        seq, L, table, dg.codes, node_start, pidx, B, n, dg.max_preds,
+        Lp, m, best_val, best_i, best_j, packed,
+    )
     return best_val, best_i, best_j, packed

@@ -13,7 +13,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from ..host import PoaGraph, scoring
+from .. import scoring
+from ..graph.poagraph import PoaGraph
 
 _TENSOR_FIELDS = (
     "codes", "node_start", "pred_idx", "pred_mask", "min_pred", "r_values",

@@ -1,4 +1,4 @@
-"""On-device traceback for POA modes 0 and 1.
+"""On-device traceback for POA modes 0-3.
 
 Counterpart of ``recgraph_tpu/ops/traceback_engine.py:45-222``
 (``walk_poa``, ``pack_walk32``, ``unpack_walk``, ``compact_walk``,
@@ -12,10 +12,8 @@ compact walk crosses to the host:
     stop_row/stop_col   where the walk terminated ('O' cell)
 
 Moves are in ABSOLUTE read columns: D/L decrement the column, D/U move
-to the packed predecessor row.  Ported: the linear-gap branch
-(``gap=False``), full-width planes (``ws=None``) and the in-walk band
-check.  The gap-chain and windowed branches come with modes 2/3 and
-long reads.
+to the packed predecessor row.  The gap chains of modes 2/3, windowed
+planes (long reads) and the in-walk band check are ported.
 """
 
 from __future__ import annotations
@@ -24,7 +22,8 @@ import numpy as np
 import torch
 
 HOLE = 31   # non-emitting loop iterations write this code; compacted on host
-O, D, LOW_D, L_DIR, U_DIR = range(5)  # poa_engine's codes (it imports this module)
+CHAIN_FLAG = 16  # set on steps emitted inside an X/Y gap chain
+O, D, LOW_D, L_DIR, U_DIR, X_DIR, Y_DIR = range(7)  # poa_engine's codes (it imports this module)
 
 # walks end on every lane long before max_steps; testing for that costs
 # a device sync, so it is tested every CHECK_EVERY iterations (only the
@@ -51,46 +50,101 @@ def compact_walk(dirs_b, rows_b, ns):
     return d, r
 
 
-def walk_poa(packed, last_row, last_col_abs, max_steps, band=None):
-    """Walk int32[B, n, Lp] packed planes back from (last_row, last_col).
+def walk_poa(packed, last_row, last_col_abs, max_steps, band=None, ws=None,
+             packed_x=None, packed_y=None):
+    """Walk int32[B, n, W] packed planes back from (last_row, last_col).
+
+    ``packed_x``/``packed_y`` (modes 2/3) turn on the gap chains: an L
+    step onto an 'X' cell of packed_x enters an X chain that moves left
+    while packed_x says 'X'; a U step onto a 'Y' cell of packed_y enters
+    a Y chain that moves to packed_y's predecessor while it says 'Y'.
+    Chain-interior steps carry ``CHAIN_FLAG``.
+
+    ``ws`` int32[B, n] (windowed planes): cell (row, col) is stored at
+    lane col - ws[row]; lanes outside [0, W) read 0 (= O), as a
+    full-width plane's out-of-band cells do.
 
     ``band`` (lefts int32[B, n], rights int32[B, n], seq_len int32[B])
     runs the band-exhaustion check inside the walk, as
     native/gaf_emit.cpp:375-429 replays it: the first decisive cell
     wins; accept at row 0 or at (col 0 with left 0), fail at a band
-    border that is not the read border.
+    border that is not the read border; chain-interior cells are
+    skipped.
 
     Returns (dirs, rows, steps, stop_row, stop_col, band_ok | None,
     query_start, iterations); query_start = stop_col - lefts[stop_row]
     (stop_col without ``band``).
     """
-    B, n, Lp = packed.shape
+    B, n, W = packed.shape
     dev = packed.device
-    pf = packed.reshape(B, n * Lp)
+    gap = packed_x is not None
+    planes = [packed.reshape(B, n * W)]
+    if gap:
+        planes += [packed_x.reshape(B, n * W), packed_y.reshape(B, n * W)]
     row = last_row.long()
     col = last_col_abs.long()
+    ws64 = None if ws is None else ws.long()
+    chain = torch.zeros(B, dtype=torch.int32, device=dev)   # 0 none, 1 X, 2 Y
     k = torch.zeros(B, dtype=torch.int32, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     verdict = torch.zeros(B, dtype=torch.int32, device=dev)
     dirs = torch.full((B, max_steps), -1, dtype=torch.int32, device=dev)
     rows = torch.zeros((B, max_steps), dtype=torch.int32, device=dev)
-    hole = torch.full((B,), HOLE, dtype=torch.int32, device=dev)
     it = 0
     while it < max_steps:
         if it % CHECK_EVERY == 0 and bool(done.all()):
             break
-        c = pf.gather(1, (row * Lp + col)[:, None])[:, 0]
+        if ws64 is None:
+            idx, inside = row * W + col, None
+        else:
+            rel = col - ws64.gather(1, row[:, None])[:, 0]
+            inside = (rel >= 0) & (rel < W)
+            idx = row * W + rel.clamp(0, W - 1)
+        cells = [pl.gather(1, idx[:, None])[:, 0] for pl in planes]
+        if inside is not None:
+            cells = [torch.where(inside, cl, 0) for cl in cells]
+        c = cells[0]
         dir_ = c & 15
-        is_o = dir_ == O
+        dispatch = chain == 0
+        is_o = dispatch & (dir_ == O)
         done_new = done | is_o
-        move_col = ~done_new & ((dir_ == D) | (dir_ == LOW_D) | (dir_ == L_DIR))
-        move_row = ~done_new & ((dir_ == D) | (dir_ == LOW_D) | (dir_ == U_DIR))
-        emit = move_col | move_row
-        dirs[:, it] = torch.where(emit, dir_, hole)
+        live = dispatch & ~done_new
+        is_d = live & ((dir_ == D) | (dir_ == LOW_D))
+        is_l = live & (dir_ == L_DIR)
+        is_u = live & (dir_ == U_DIR)
+        if gap:
+            cx, cy = cells[1], cells[2]
+            px_is_x = (cx & 15) == X_DIR
+            py_is_y = (cy & 15) == Y_DIR
+            enter_x = is_l & px_is_x
+            enter_y = is_u & py_is_y
+            x_cont = (chain == 1) & px_is_x
+            y_cont = (chain == 2) & py_is_y
+            x_exit = (chain == 1) & ~px_is_x
+            y_exit = (chain == 2) & ~py_is_y
+            is_l = is_l & ~enter_x
+            is_u = is_u & ~enter_y
+            code = torch.where(is_d, dir_, 0)
+            code = torch.where(is_l | enter_x, L_DIR, code)
+            code = torch.where(is_u | enter_y, U_DIR, code)
+            code = torch.where(x_cont, L_DIR + CHAIN_FLAG, code)
+            code = torch.where(y_cont, U_DIR + CHAIN_FLAG, code)
+            move_col = is_d | is_l | enter_x | x_cont
+            to_pred = is_d | is_u
+            to_ypred = enter_y | y_cont
+        else:
+            code = dir_
+            move_col = is_d | is_l
+            to_pred = is_d | is_u
+            to_ypred = None
+        emit = ~done & (move_col | to_pred | (to_ypred if gap else False))
+        dirs[:, it] = torch.where(emit, code, HOLE)
         rows[:, it] = torch.where(emit, row, 0)
         if band is not None:
             lefts, rights, seq_len = band
             at_step = emit | (is_o & ~done)
+            if gap:
+                at_step = at_step & ((is_o & ~done) | ((code & CHAIN_FLAG) == 0))
             left = lefts.gather(1, row[:, None])[:, 0]
             right = rights.gather(1, row[:, None])[:, 0]
             jrel = col - left
@@ -103,7 +157,11 @@ def walk_poa(packed, last_row, last_col_abs, max_steps, band=None):
                 (verdict == 0) & at_step & (new_v != 0), new_v, verdict
             )
         col = col - move_col.long()
-        row = torch.where(move_row, (c >> 4).long(), row)
+        row = torch.where(to_pred, (c >> 4).long(), row)
+        if gap:
+            row = torch.where(to_ypred, (cells[2] >> 4).long(), row)
+            chain = torch.where(enter_x, 1, torch.where(enter_y, 2, chain))
+            chain = torch.where(x_exit | y_exit, 0, chain)
         k = k + emit.to(torch.int32)
         done = done_new
         it += 1

@@ -106,25 +106,38 @@ def test_fuzz_copy_matches_tests(seed):
     ]
 
 
-def test_port_never_imports_jax():
-    """Importing every module of the port leaves jax out of sys.modules."""
+def test_port_never_imports_jax(example_paths, tmp_path):
+    """Importing every module of the port and running the CPU pipeline on
+    two example reads in modes 0-3 leaves neither jax nor recgraph_tpu
+    (or any of their submodules) in sys.modules."""
+    seqs, names = fasta.get_sequences(example_paths[0])
+    reads = tmp_path / "two.fa"
+    reads.write_text("".join(f">{n}\n{s[1:]}\n" for n, s in zip(names[:2], seqs[:2])))
     code = (
-        "import pkgutil, importlib, sys, recgraph_tpu_torch\n"
+        "import contextlib, io, pkgutil, importlib, sys, torch, recgraph_tpu_torch\n"
+        "torch.set_num_threads(1)\n"
         "for m in pkgutil.walk_packages(recgraph_tpu_torch.__path__, 'recgraph_tpu_torch.'):\n"
         "    if m.name != 'recgraph_tpu_torch.__main__':\n"
         "        importlib.import_module(m.name)\n"
-        "import recgraph_tpu_torch.align.pipeline, recgraph_tpu_torch.cli\n"
-        "assert 'recgraph_tpu_torch.ops.cuda_poa_global' in sys.modules\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k.startswith(('recgraph_tpu.ops', 'recgraph_tpu.align',\n"
-        "                              'recgraph_tpu.metrics')))\n"
+        "from recgraph_tpu_torch.align.pipeline import Options, run\n"
+        "assert 'recgraph_tpu_torch.ops.cuda_poa_gap_global_win' in sys.modules\n"
+        "for mode in range(4):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        f"        run(Options({str(reads)!r}, {example_paths[1]!r}, alignment_mode=mode,\n"
+        "                    device='cpu'))\n"
+        "    assert len(buf.getvalue().splitlines()) == 2, mode\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib',\n"
+        "             'recgraph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # one thread, as in the other CPU tests: the run shares the CPU with
+    # the other test workers
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=120,
+        text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -1,5 +1,7 @@
 """The port's pipeline and CLI on the CPU: goldens, amb-strand against
-the JAX pipeline, chunking, the oracle engine and unported paths.
+the JAX pipeline, chunking, the oracle engine and unported paths (modes
+0/1; modes 2/3 in test_torch_pipeline_gap.py, long reads in
+test_torch_long_reads.py).
 
 The comparisons are byte equality of GAF output.
 """
@@ -62,31 +64,40 @@ def test_golden_cpu(example_paths, name):
 
 @pytest.mark.parametrize("mode", [0, 1])
 def test_amb_strand_matches_jax(example_paths, tmp_path, mode):
-    reads = _subset(example_paths, tmp_path, 12)
+    check_amb_strand(example_paths, tmp_path, mode, 12)
+
+
+def check_amb_strand(example_paths, tmp_path, mode, k):
+    reads = _subset(example_paths, tmp_path, k)
     graph = example_paths[1]
     ref = _capture(jax_pipeline.run, jax_pipeline.Options(
         reads, graph, alignment_mode=mode, amb_strand=True, engine="jax"))
     got = _capture(run, Options(
         reads, graph, alignment_mode=mode, amb_strand=True, device="cpu"))
     assert got == ref
-    assert len(got.splitlines()) == 12
+    assert len(got.splitlines()) == k
 
 
 @pytest.mark.parametrize("mode", [0, 1])
 def test_output_does_not_depend_on_chunk_size(example_paths, monkeypatch, mode):
+    check_chunking(example_paths, monkeypatch, mode, 7)
+
+
+def check_chunking(example_paths, monkeypatch, mode, k):
     seqs, _ = fasta.get_sequences(example_paths[0])
-    seqs = seqs[:7]
+    seqs = seqs[:k]
     g = PoaGraph.from_gfa(gfa.parse_gfa(example_paths[1]))
     sm = ScoreMatrix.create("none", 2, -4)
     btas = [int(1 + 0.01 * len(s)) for s in seqs]
     Lp = (max(map(len, seqs)) + 7) // 8 * 8
     W = traceback_engine.max_walk_steps(g.n, Lp)
-    three = 3 * 4 * (2 * g.n * Lp + 3 * g.n + 2 * W)
-    whole = poa_engine.run_batch_walks(mode, seqs, g, sm, btas, "cpu")
-    assert poa_engine.chunk_reads(g.n, Lp, "cpu") >= len(seqs)
+    planes = 2 if mode < 2 else 5      # the planes and score scratch each fill writes
+    three = 3 * 4 * (planes * g.n * Lp + 5 * g.n + 2 * W)
+    whole = poa_engine.run_batch_walks(mode, seqs, g, sm, -4, -2, btas, "cpu")
+    assert poa_engine.chunk_reads(mode, g.n, Lp, max(btas), "cpu") >= len(seqs)
     monkeypatch.setitem(poa_engine.CHUNK_BYTES, "cpu", three)
-    assert poa_engine.chunk_reads(g.n, Lp, "cpu") == 3
-    chunked = poa_engine.run_batch_walks(mode, seqs, g, sm, btas, "cpu")
+    assert poa_engine.chunk_reads(mode, g.n, Lp, max(btas), "cpu") == 3
+    chunked = poa_engine.run_batch_walks(mode, seqs, g, sm, -4, -2, btas, "cpu")
     assert len(whole) == len(chunked) == len(seqs)
     for a, b in zip(whole, chunked):
         for f in ("score", "last_row", "last_col_abs", "stop_row", "query_start",
@@ -110,7 +121,7 @@ def test_oracle_engine(example_paths, tmp_path, mode):
 
 
 def test_unported_paths_raise(example_paths):
-    for mode in (2, 5, 9):
+    for mode in (4, 5, 9):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             run(Options(*example_paths, alignment_mode=mode, device="cpu"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -119,3 +130,4 @@ def test_unported_paths_raise(example_paths):
         cli.main([*example_paths, "--device", "cpu", "--num-processes", "2"])
     with pytest.raises(ValueError, match="engine"):
         Options(*example_paths, engine="jax", device="cpu")
+

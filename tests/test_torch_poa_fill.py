@@ -1,4 +1,4 @@
-"""The port's plain fills against the JAX package's fills, on the CPU.
+"""The port's plain fills (modes 0/1) against the JAX package's fills, on the CPU.
 
 ``poa_engine._fill_global`` / ``_fill_local`` are the plain references
 the Pallas kernels are pinned to (tests/test_pallas_poa.py,
@@ -120,17 +120,24 @@ def test_cpu_dispatch_runs_plain_and_launches_nothing(example_paths):
 
 
 def test_unported_shapes_and_devices_raise(example_paths):
+    """Reads of 1,024 columns or more run in both dispatchers (no long-read
+    guard is left) and equal the JAX fills; the CUDA wrappers still refuse
+    CPU tensors."""
     g, reads, btas = _case("random12", example_paths)
     sm = ScoreMatrix.create("none", 2, -4)
-    _, (dg, table, seq, L, bta) = _inputs(g, reads, btas, sm)
-    long_seq, long_L = encode_reads(["$" + "A" * 1100], device="cpu")
-    with pytest.raises(NotImplementedError, match="long reads"):
-        poa_engine.fill_global_best(dg, table, long_seq, long_L, bta[:1])
-    with pytest.raises(NotImplementedError, match="long reads"):
-        poa_engine.fill_local_best(dg, table, long_seq, long_L)
+    rng = random.Random(12)
+    long_reads = reads[:2] + ["$" + "".join(rng.choice("ACGT") for _ in range(1100))]
+    long_btas = btas[:2] + [20]
+    jx, (dg, table, seq, L, bta) = _inputs(g, long_reads, long_btas, sm)
+    assert seq.shape[1] >= poa_engine.LONG_READ_LP
+    _assert_outputs_equal(
+        poa_engine.fill_global_best(dg, table, seq, L, bta), jax_engine._fill_global(*jx),
+        ["score", "last_row", "last_col_abs", "packed", "lefts", "rights"])
+    _assert_outputs_equal(
+        poa_engine.fill_local_best(dg, table, seq, L), jax_engine._fill_local(*jx[:4]),
+        ["best_val", "best_i", "best_j", "packed"])
     # the CUDA wrappers take CUDA tensors only; they never run the plain path
     with pytest.raises(ValueError, match="CUDA"):
         cuda_poa_global.fill_global_cuda(dg, table, seq, L, bta)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_poa_local.fill_local_cuda(dg, table, seq, L)
-
