@@ -9,28 +9,38 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build    compile and load the CUDA kernels (csrc/*.cu, sm_90a, one nvcc
             per source, all started together);
 3. goldens  the port's pipeline on example/ for mode0, mode1, mode1_hoxd70,
-            mode2 and mode3, byte-equal to tests/goldens/*.gaf;
+            mode2, mode3, mode4 and mode5, byte-equal to tests/goldens/*.gaf;
 4. stretch  the CLI on the 10,000-read stretch corpus
-            (tools/make_synthetic.make(dir, 700, 10000, 42)) for -m 0..3:
-            line count, a sample byte-equal to the port's CPU run on the
-            same reads, reads/s, the phase breakdown and peak memory;
+            (tools/make_synthetic.make(dir, 700, 10000, 42)) for -m 0..5:
+            line count (modes 4/5 drop read 0's line with -o, as the
+            reference does), mode 4's first lines byte-equal to
+            tests/goldens/stretch_mode4_sample.gaf, a sample byte-equal to
+            the port's CPU run on the same reads, reads/s, the phase
+            breakdown and peak memory; then -m 4 on 512 reads of the
+            128-path corpus make(dir, 700, 512, 42, n_paths=128), the
+            shape at which the JAX package takes its path-tiled kernel;
 5. long     the CLI on 512 reads of the long corpus (the recipe of
-            bench.py:78-110, written out below) for -m 0 and -m 2: the
-            windows the ladder ran, reads/s, phases, a sample byte-equal
-            to the CPU run; then -m 1 and -m 3 on 64 long reads at full
+            bench.py:78-110, written out below) for -m 0, -m 2 and -m 4:
+            the windows the ladder ran (and, in mode 4, the reads rerun
+            at full width), reads/s, phases, a sample byte-equal to the
+            CPU run; then -m 1, -m 3 and -m 5 on 64 long reads at full
             width;
-6. kernels  K1-K6 against their plain torch versions on the card, all
-            outputs exactly equal, at every launch shape of phases 4-5
-            (reads, rows, Lp, stored width, as metrics.SHAPES recorded
-            them; the leading reads of that corpus), with kernel and plain
-            times (CUDA events) and the bound at each; then on the example
-            corpus, three seeded random graphs, HOXD70 (K2, K5),
-            (o, e) = (+1, -2) (K4, K5), K1 on 64 long reads at full width
-            and K3/K6 at W = 32, where reads overflow;
+6. kernels  K1-K7 and K10 against their plain torch versions on the card,
+            all outputs exactly equal, at every launch shape of phases 4-5
+            (reads, rows, Lp, stored width[, paths], as metrics.SHAPES
+            recorded them; the leading reads of that corpus), with kernel
+            and plain times (CUDA events) and the bound at each; then on
+            the example corpus, three seeded random graphs, HOXD70 (K2,
+            K5, K7), (o, e) = (+1, -2) (K4, K5), K1 on 64 long reads at
+            full width, K3/K6/K10 at W = 32, where reads overflow, and K7
+            in mode 5, on a 126-path graph and past the JAX engine's
+            packed-chain gate;
 7. imports  no jax* and no recgraph_tpu* module was imported;
 8. result   the nvidia-smi line, one JSON line with every kernel (times
-            and bound at the shape it was launched at most often), and the
-            last line {"ok": true, "device": {...}}.
+            and bound at the shape it was launched at most often; K9a, the
+            TPU's path-tiled variant of K7, is K7's kernel at the
+            128-path shapes), and the last line {"ok": true, "device":
+            {...}}.
 
 Every launch counter is set to 0 just before each CLI run of phases 4-5
 and read just after; the run fails if a kernel of its path was not
@@ -52,17 +62,23 @@ from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STRETCH = dict(n_back=700, n_reads=10000, seed=42)
-LONG = dict(n_back=1200, seed=11, n_reads=512, full_width_reads=64, sample_step=64)
+MANY_PATHS = dict(n_back=700, n_reads=512, seed=42, n_paths=128, sample_step=97)
+LONG = dict(n_back=1200, seed=11, n_reads=512, full_width_reads=64, sample_step=64,
+            pathwise_sample_step=128, mode5_sample_step=32)
 GOLDENS = {
     "mode0": dict(alignment_mode=0),
     "mode1": dict(alignment_mode=1),
     "mode1_hoxd70": dict(alignment_mode=1, matrix="HOXD70"),
     "mode2": dict(alignment_mode=2),
     "mode3": dict(alignment_mode=3),
+    "mode4": dict(alignment_mode=4),
+    "mode5": dict(alignment_mode=5),
 }
 # stretch sample checked against the CPU run: the first HEAD reads and
-# every STEP-th after them (fewer for the slower affine-gap CPU fills)
-SAMPLE = {0: (128, 79), 1: (128, 79), 2: (32, 313), 3: (32, 313)}
+# every STEP-th after them (fewer for the slower affine-gap and pathwise
+# CPU fills)
+SAMPLE = {0: (128, 79), 1: (128, 79), 2: (32, 313), 3: (32, 313), 4: (32, 313),
+          5: (32, 313)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12   # H100 SXM int32 issue rate (half the 67 TFLOP/s fp32 rate)
 O, E = -4, -2               # the CLI's default gap penalties
@@ -104,15 +120,16 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def make_stretch(workdir):
+def make_synth(workdir, name, n_back, n_reads, seed, n_paths=8, **_):
+    """A tools/make_synthetic corpus: (reads.fa, graph.gfa)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import make_synthetic
 
-    d = os.path.join(workdir, "stretch")
+    d = os.path.join(workdir, name)
     reads = os.path.join(d, "reads.fa")
     if not os.path.exists(reads):
         with contextlib.redirect_stdout(io.StringIO()):
-            make_synthetic.make(d, STRETCH["n_back"], STRETCH["n_reads"], STRETCH["seed"])
+            make_synthetic.make(d, n_back, n_reads, seed, n_paths)
     return reads, os.path.join(d, "graph.gfa")
 
 
@@ -159,128 +176,184 @@ def write_fasta(path, seqs, names):
             fh.write(f">{nm}\n{s[1:]}\n")
 
 
-def load_corpus(reads_fa, graph_gfa, limit=None):
-    """(PoaGraph, '$'-prefixed reads) of a corpus."""
+def load_corpus(reads_fa, graph_gfa, limit=None, graph=None):
+    """(PoaGraph, or ``graph``'s class, and '$'-prefixed reads) of a corpus."""
     from recgraph_tpu_torch.graph.poagraph import PoaGraph
     from recgraph_tpu_torch.io import gfa
 
-    return PoaGraph.from_gfa(gfa.parse_gfa(graph_gfa)), read_set(reads_fa, limit)[0]
+    cls = graph or PoaGraph
+    return cls.from_gfa(gfa.parse_gfa(graph_gfa)), read_set(reads_fa, limit)[0]
 
 
-def kernel_cases(example, long):
-    """(PoaGraph, reads) of the exactness cases beside the main path's
-    shapes: the example corpus, 64 long reads and three random graphs."""
+def kernel_cases(example, long, workdir):
+    """Graphs and reads of the exactness cases beside the main path's
+    shapes, keyed by (graph kind, name): POA graphs of the example
+    corpus, 64 long reads and three random graphs; path graphs of the
+    example corpus (23 paths, up to 9 groups a row), a 126-path graph,
+    8 long reads and the same three random graphs."""
     from recgraph_tpu_torch import fuzz
+    from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.graph.poagraph import PoaGraph
 
-    cases = {"example": load_corpus(*example),
-             "long64": load_corpus(*long, LONG["full_width_reads"])}
+    p126 = make_synth(workdir, "p126", n_back=80, n_reads=8, seed=7, n_paths=126)
+    cases = {("poa", "example"): load_corpus(*example),
+             ("poa", "long64"): load_corpus(*long, LONG["full_width_reads"]),
+             ("path", "example"): load_corpus(*example, 16, graph=PathGraph),
+             ("path", "p126"): load_corpus(*p126, graph=PathGraph),
+             ("path", "long8"): load_corpus(*long, 8, graph=PathGraph)}
     for seed in (101, 202, 303):
         rng = random.Random(seed)
         gf = fuzz.random_gfa(rng, n_nodes=24, n_paths=4, cover_all=True)
         reads = [fuzz.random_read(rng, gf) for _ in range(8)]
-        cases[f"random{seed}"] = (PoaGraph.from_gfa(gf), reads)
+        cases[("poa", f"random{seed}")] = (PoaGraph.from_gfa(gf), reads)
+        cases[("path", f"random{seed}")] = (PathGraph.from_gfa(gf), reads)
     return cases
 
 
+def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None):
+    """One exactness case: the named graph and reads, the scoring table,
+    the window width, the affine penalties, mode 5 (``semi``) and the
+    padded read width."""
+    return dict(name=name, matrix=matrix, W=W, oe=oe, semi=semi, pad_to=pad_to)
+
+
 def kernel_specs():
-    """Per kernel: wrapper module, plain version, the exactness cases it
-    is checked on besides its main-path shapes (name, table, penalties,
-    window), the planes it writes and the int32 operations per stored
-    cell and predecessor."""
+    """Per kernel: wrapper module, plain version, the graph kind it runs
+    on, its arguments built from one case (``x``: dg, table, seq, L, bta,
+    W, o, e, semi), its exactness cases besides its main-path shapes, and
+    the int32 operations per stored cell and per predecessor.  K7 is
+    also checked in mode 5 at its most launched shape, and its 128-path
+    shapes stand for K9a, the TPU's path-tiled variant."""
     from recgraph_tpu_torch.ops import (
-        cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global,
-        cuda_poa_global_win, cuda_poa_local, poa_engine, poa_gap_engine,
+        cuda_pathwise, cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win,
+        cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win, cuda_poa_local,
+        pathwise_engine, pathwise_window, poa_engine, poa_gap_engine,
     )
 
-    none = [(c, "none", (O, E), None)
-            for c in ("example", "random101", "random202", "random303")]
-    win = [(c, t, oe, 32) for c, t, oe, _ in none]   # W = 32: some reads overflow
+    def over(x, got):
+        return f" W={x.W} over={int(got[-1].sum())}/{x.seq.shape[0]}"
+
+    def guard(x, got):
+        fc = pathwise_window._final_column_win(got[0], got[1], x.L)
+        end = pathwise_engine._end_meta(x.g, "cuda")
+        score = pathwise_engine._endings_global_dev(fc, *end)[2]
+        return f" W={x.W} guard fails {int((score <= got[2]).sum())}/{x.seq.shape[0]}"
+
+    poa = [case(c) for c in ("example", "random101", "random202", "random303")]
+    win = [dict(c, W=32) for c in poa]   # W = 32: some reads overflow
+    rand = [case(f"random{s}", semi=semi) for s in (101, 202, 303) for semi in (False, True)]
     return [
         dict(id="K1", mod=cuda_poa_global, kern=cuda_poa_global.fill_global_cuda,
-             plain=poa_engine.fill_global_plain, args="global", planes=1, ops=(24, 4),
-             cases=none + [("long64", "none", (O, E), None)]),
+             plain=poa_engine.fill_global_plain, graph="poa", ops=(24, 4),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta), cases=poa + [case("long64")]),
         dict(id="K2", mod=cuda_poa_local, kern=cuda_poa_local.fill_local_cuda,
-             plain=poa_engine.fill_local_plain, args="local", planes=1, ops=(20, 4),
-             cases=none + [("example", "HOXD70", (O, E), None)]),
+             plain=poa_engine.fill_local_plain, graph="poa", ops=(20, 4),
+             args=lambda x: (x.dg, x.table, x.seq, x.L),
+             cases=poa + [case("example", "HOXD70")]),
         dict(id="K3", mod=cuda_poa_global_win, kern=cuda_poa_global_win.fill_global_win_cuda,
-             plain=poa_engine.fill_global_windowed_plain, args="global_win", planes=1,
-             ops=(26, 6), cases=win),
+             plain=poa_engine.fill_global_windowed_plain, graph="poa", ops=(26, 6),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.W), note=over, cases=win),
         dict(id="K4", mod=cuda_poa_gap_global, kern=cuda_poa_gap_global.fill_gap_global_cuda,
-             plain=poa_gap_engine.fill_gap_global_plain, args="gap_global", planes=3,
-             ops=(60, 8), cases=none + [("example", "none", (1, -2), None)]),
+             plain=poa_gap_engine.fill_gap_global_plain, graph="poa", ops=(60, 8),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.o, x.e),
+             cases=poa + [case("example", oe=(1, -2))]),
         dict(id="K5", mod=cuda_poa_gap_local, kern=cuda_poa_gap_local.fill_gap_local_cuda,
-             plain=poa_gap_engine.fill_gap_local_plain, args="gap_local", planes=3,
-             ops=(60, 8), cases=none + [("example", "HOXD70", (O, E), None),
-                                        ("example", "none", (1, -2), None)]),
+             plain=poa_gap_engine.fill_gap_local_plain, graph="poa", ops=(60, 8),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, x.o, x.e),
+             cases=poa + [case("example", "HOXD70"), case("example", oe=(1, -2))]),
         dict(id="K6", mod=cuda_poa_gap_global_win,
              kern=cuda_poa_gap_global_win.fill_gap_global_win_cuda,
-             plain=poa_gap_engine.fill_gap_global_windowed_plain, args="gap_global_win",
-             planes=3, ops=(62, 10), cases=win + [("example", "none", (1, -2), 32)]),
+             plain=poa_gap_engine.fill_gap_global_windowed_plain, graph="poa", ops=(62, 10),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.o, x.e, x.W), note=over,
+             cases=win + [case("example", W=32, oe=(1, -2))]),
+        dict(id="K7", mod=cuda_pathwise, kern=cuda_pathwise.fill_pathwise_cuda,
+             plain=pathwise_engine.fill_pathwise_plain, graph="path", ops=(16, 0),
+             args=lambda x: (x.dg, x.table, x.seq, x.semi), main_also=dict(semi=True),
+             views=[("K9a", MANY_PATHS["n_paths"], cuda_pathwise.REPLACES_BIGP)],
+             cases=rand + [case("example"), case("example", semi=True),
+                           case("example", "HOXD70"),
+                           # past the JAX engine's packed-chain gate
+                           case("example", "HOXD70", semi=True, pad_to=320),
+                           case("p126", pad_to=256), case("p126", semi=True, pad_to=256)]),
+        dict(id="K10", mod=cuda_pathwise_win, kern=cuda_pathwise_win.fill_pathwise_win_cuda,
+             plain=pathwise_window.fill_pathwise_win_plain, graph="path", ops=(30, 0),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, x.W, pathwise_window.rmin_tensor(x.dg)),
+             note=guard, cases=[case("long8", W=32), case("long8", W=1024),
+                                case("example", W=32), case("example", "HOXD70", W=64)]),
     ]
 
 
-def bound(spec, dg, seq, width, avg_preds):
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if hasattr(t, "numel"))
+
+
+def bound(spec, x, got):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     int32 operations over the int32 rate.  Bytes: each input read once
-    (reads, lengths, band slack, graph arrays, table) and each output
-    written once (planes at the stored width, per-row band/window arrays,
-    per-read scalars).  Operations: per stored cell, a fixed count for
-    the recurrence plus a count per predecessor, at this graph's mean
-    predecessors per row."""
-    B, Lp = seq.shape
-    n = dg.n
-    cells = B * n * width
-    inputs = 4 * (B * Lp + 2 * B + n * (4 + dg.max_preds) + 49)
-    per_row = {"global": 2, "global_win": 3, "gap_global": 2, "gap_global_win": 3}
-    outputs = 4 * (spec["planes"] * cells + per_row.get(spec["args"], 0) * B * n + 3 * B)
-    if spec["args"].endswith("win"):
-        outputs += B                                   # the over flags
-    t_bytes = (inputs + outputs) / HBM_BYTES_PER_S * 1e3
+    (the tensor arguments: reads, lengths, band slack, table, rmin; and
+    the graph arrays the kernel reads: for POA codes, predecessors,
+    fallbacks and distances, for paths the codes and the group table)
+    and each output written once (every tensor the kernel returns).
+    Operations: per stored cell (reads x rows x width x paths), a fixed
+    count for the recurrence plus a count per predecessor, at this
+    graph's mean predecessors per row."""
+    from recgraph_tpu_torch.ops.encode import group_table
+
+    B, Lp = x.seq.shape
+    dg = x.dg
+    if spec["graph"] == "poa":
+        graph, P, preds = 4 * dg.n * (4 + dg.max_preds), 1, float(dg.pred_mask.sum()) / dg.n
+    else:
+        graph, P, preds = 4 * dg.n + nbytes(group_table(dg)), dg.paths_number, 0.0
+    t_bytes = (nbytes(spec["args"](x)) + graph + nbytes(got)) / HBM_BYTES_PER_S * 1e3
     c0, c1 = spec["ops"]
-    t_ops = cells * (c0 + c1 * avg_preds) / INT32_OPS_PER_S * 1e3
+    t_ops = B * dg.n * x.W * P * (c0 + c1 * preds) / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_case(spec, label, g, reads, matrix, o, e, W, pad_to=None, timed=False):
-    """One kernel call against its plain version on the same inputs;
-    returns (max_abs_err, timing or None)."""
+def check_case(spec, label, g, reads, c, timed=False):
+    """One kernel call against its plain version on the same inputs
+    (case ``c``); returns (max_abs_err, timing or None)."""
+    from types import SimpleNamespace
+
     import torch
 
-    from recgraph_tpu_torch.ops.encode import encode_read_aux, encode_reads, poa_device_graph
+    from recgraph_tpu_torch.ops.encode import (
+        encode_read_aux, encode_reads, group_table, path_device_graph, poa_device_graph,
+    )
     from recgraph_tpu_torch.scoring import ScoreMatrix
 
-    dg = poa_device_graph(g, "cuda")
-    table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table, dtype=torch.int32).cuda()
-    seq, L = encode_reads(reads, pad_to=pad_to, device="cuda")
+    path = spec["graph"] == "path"
+    dg = (path_device_graph if path else poa_device_graph)(g, "cuda")
+    table = torch.as_tensor(ScoreMatrix.create(c["matrix"], 2, -4).table,
+                            dtype=torch.int32).cuda()
+    seq, L = encode_reads(reads, pad_to=c["pad_to"], device="cuda")
     bta = encode_read_aux([int(1 + 0.01 * len(s)) for s in reads], "cuda")
-    args = {
-        "global": (dg, table, seq, L, bta),
-        "local": (dg, table, seq, L),
-        "global_win": (dg, table, seq, L, bta, W),
-        "gap_global": (dg, table, seq, L, bta, o, e),
-        "gap_local": (dg, table, seq, L, o, e),
-        "gap_global_win": (dg, table, seq, L, bta, o, e, W),
-    }[spec["args"]]
-    windowed = spec["args"].endswith("win")
+    x = SimpleNamespace(g=g, dg=dg, table=table, seq=seq, L=L, bta=bta, W=c["W"],
+                        o=c["oe"][0], e=c["oe"][1], semi=c["semi"])
+    args = spec["args"](x)
     got = spec["kern"](*args)
+    got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = spec["plain"](*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = ref if isinstance(ref, tuple) else (ref,)
     B, Lp = seq.shape
-    err = compare(f"{spec['id']} {label} {matrix} o={o} e={e}", got, ref)
-    over = f" W={W} over={int(got[-1].sum())}/{B}" if windowed else ""
-    log(f"{spec['id']} {spec['mod'].KERNEL} {label} ({matrix}, o={o}, e={e}): B={B} "
-        f"n={dg.n} Lp={Lp} Pm={dg.max_preds}{over} exact (max_abs_err {err})")
+    how = f"mode {5 if c['semi'] else 4}" if path else f"o={x.o}, e={x.e}"
+    err = compare(f"{spec['id']} {label} {c['matrix']} {how} W={x.W}", got, ref)
+    note = spec["note"](x, got) if "note" in spec else ""
+    paths = f" P={dg.paths_number} Gd={group_table(dg)[0].shape[1]}" if path else \
+        f" Pm={dg.max_preds}"
+    log(f"{spec['id']} {spec['mod'].KERNEL} {label} ({c['matrix']}, {how}): B={B} n={dg.n} "
+        f"Lp={Lp}{paths}{note} exact (max_abs_err {err})")
     if not timed:
         return err, None
+    bound_ms, bound_by = bound(spec, x, got)
     del got, ref
-    width = W if windowed else Lp
-    ms = cuda_ms(lambda: spec["kern"](*args), 5)
-    bound_ms, bound_by = bound(spec, dg, seq, width, float(dg.pred_mask.sum()) / dg.n)
-    log(f"{spec['id']} time at B={B} n={dg.n} Lp={Lp} W={width}: kernel {ms:.3f} ms, "
+    ms = cuda_ms(lambda: spec["kern"](*args), 3)
+    log(f"{spec['id']} time at B={B} n={dg.n}{paths} Lp={Lp} W={x.W}: kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
         f"{100 * bound_ms / ms:.2f} % of bound")
     return err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -288,26 +361,32 @@ def check_case(spec, label, g, reads, matrix, o, e, W, pad_to=None, timed=False)
 
 def check_kernels(shapes, corpora, cases):
     """Every kernel against its plain version at each shape the main path
-    launched it at (``shapes``: metrics.SHAPES keys -> launches, inputs
-    the leading reads of the corpus with that many rows), timed there,
-    and on its exactness cases.  A kernel's result carries the times and
-    bound of the shape it was launched at most often."""
+    launched it at (``shapes``: metrics.SHAPES keys (kernel, reads, rows,
+    Lp, width[, paths]) -> launches; inputs the leading reads of the
+    corpus of that graph kind, rows and paths), timed there, and on its
+    exactness cases.  Returns per kernel its max error and its timed
+    shapes, the most launched first."""
     results = {}
     for spec in kernel_specs():
-        kernel, err, main = spec["mod"].KERNEL, 0, None
-        ours = sorted(((k[1:], v) for k, v in shapes.items() if k[0] == kernel),
-                      key=lambda kv: (-kv[1], -kv[0][0] * kv[0][3]))
+        kernel, err, timed = spec["mod"].KERNEL, 0, []
+        ours = sorted(((k[1:5], k[5] if len(k) > 5 else 1, v)
+                       for k, v in shapes.items() if k[0] == kernel),
+                      key=lambda t: (-t[2], -t[0][0] * t[0][3] * t[1]))
         if not ours:
             raise AssertionError(f"{spec['id']} {kernel} has no main-path launch")
-        for (B, n, Lp, W), launches in ours:
-            g, reads = corpora[n]
-            e_, timing = check_case(spec, f"main path x{launches}", g, reads[:B], "none",
-                                    O, E, W, pad_to=Lp, timed=True)
+        for k, ((B, n, Lp, W), P, launches) in enumerate(ours):
+            g, reads = corpora[(spec["graph"], n, P)]
+            main = case("main path", W=W, pad_to=Lp)
+            e_, timing = check_case(spec, f"main path x{launches}", g, reads[:B], main,
+                                    timed=True)
             err = max(err, e_)
-            main = main or dict(timing, shape=(B, n, Lp, W))
-        for name, matrix, (o, e), W in spec["cases"]:
-            err = max(err, check_case(spec, name, *cases[name], matrix, o, e, W)[0])
-        results[spec["id"]] = dict(spec=spec, err=err, **main)
+            timed.append(dict(timing, shape=(B, n, Lp, W, P), launches=launches))
+            if k == 0 and "main_also" in spec:
+                err = max(err, check_case(spec, "main path", g, reads[:B],
+                                          dict(main, **spec["main_also"]))[0])
+        for c in spec["cases"]:
+            err = max(err, check_case(spec, c["name"], *cases[(spec["graph"], c["name"])], c)[0])
+        results[spec["id"]] = dict(spec=spec, err=err, timed=timed)
     return results
 
 
@@ -355,14 +434,19 @@ def cli_run(tag, mode, reads_fa, graph_gfa, out, expect, launches, shapes):
     return lines
 
 
-def check_sample(tag, mode, lines, seqs, names, sample, graph_gfa, workdir):
-    """The sampled reads' GAF lines equal the port's CPU run on them."""
+def check_sample(tag, mode, lines, seqs, names, sample, graph_gfa, workdir, before=None):
+    """The sampled reads' GAF lines equal the port's CPU run on them.
+    Modes 4/5 wrote no line for read 0 (``-o``): read i is line i - 1.
+    ``before`` runs just before the CPU run."""
     sample_fa = os.path.join(workdir, f"sample_{tag.replace(' ', '_')}.fa")
     write_fasta(sample_fa, [seqs[i] for i in sample], [names[i] for i in sample])
     t0 = time.perf_counter()
+    if before is not None:
+        before()
     ref = run_capture(sequence_path=sample_fa, graph_path=graph_gfa,
                       alignment_mode=mode, device="cpu").splitlines()
-    got = [lines[i] for i in sample]
+    offset = 1 if mode in (4, 5) else 0
+    got = [lines[i - offset] for i in sample]
     if got != ref:
         bad = next(k for k, (a, b) in enumerate(zip(got + [""], ref + [""])) if a != b)
         raise AssertionError(f"{tag}: sample read {sample[bad]} differs from the CPU "
@@ -381,9 +465,11 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from recgraph_tpu_torch import _backend, metrics
+    from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.ops import (
-        _kernels, cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local,
-        cuda_poa_global, cuda_poa_global_win, cuda_poa_local, poa_engine,
+        _kernels, cuda_pathwise, cuda_pathwise_win, cuda_poa_gap_global,
+        cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win,
+        cuda_poa_local, pathwise_engine, poa_engine,
     )
 
     # 1. report
@@ -407,7 +493,8 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     example = (os.path.join(ROOT, "example", "reads.fa"),
                os.path.join(ROOT, "example", "graph.gfa"))
-    stretch = make_stretch(workdir)
+    stretch = make_synth(workdir, "stretch", **STRETCH)
+    many = make_synth(workdir, "many_paths", **MANY_PATHS)
     long = make_long(workdir)
 
     # 3. goldens through the port's pipeline on the card
@@ -420,7 +507,7 @@ def main() -> int:
                 raise AssertionError(f"golden {name}: output differs")
         log(f"golden {name}: byte-equal")
     short = (cuda_poa_global, cuda_poa_local, cuda_poa_gap_global, cuda_poa_gap_local)
-    if not all(metrics.LAUNCHES.get(m.KERNEL) for m in short):
+    if not all(metrics.LAUNCHES.get(m.KERNEL) for m in short + (cuda_pathwise,)):
         raise AssertionError(f"goldens did not launch every kernel: {dict(metrics.LAUNCHES)}")
     log(f"golden launches: {dict(metrics.LAUNCHES)}")
 
@@ -437,8 +524,35 @@ def main() -> int:
         sample = sorted(set(range(head)) | set(range(head, len(seqs), step)))
         check_sample(f"stretch mode {mode}", mode, lines, seqs, names, sample, stretch[1],
                      workdir)
+    # modes 4/5: -o drops read 0's line, as the reference does
+    with open(os.path.join(ROOT, "tests", "goldens", "stretch_mode4_sample.gaf")) as fh:
+        golden4 = fh.read().splitlines()[1:]
+    for mode in (4, 5):
+        lines = cli_run(f"stretch mode {mode}", mode, stretch[0], stretch[1],
+                        os.path.join(workdir, f"stretch_mode{mode}.gaf"), [cuda_pathwise.KERNEL],
+                        launches, shapes)
+        if len(lines) != len(seqs) - 1:
+            raise AssertionError(f"stretch mode {mode}: {len(lines)} lines != {len(seqs) - 1}")
+        if mode == 4:
+            if lines[: len(golden4)] != golden4:
+                raise AssertionError("stretch mode 4: lines differ from stretch_mode4_sample.gaf")
+            log(f"stretch mode 4: lines 1-{len(golden4)} byte-equal to stretch_mode4_sample.gaf")
+        head, step = SAMPLE[mode]
+        sample = sorted(set(range(1, head)) | set(range(head, len(seqs), step)))
+        check_sample(f"stretch mode {mode}", mode, lines, seqs, names, sample, stretch[1],
+                     workdir)
+    mseqs, mnames = read_set(many[0])
+    lines = cli_run("many paths mode 4", 4, many[0], many[1],
+                    os.path.join(workdir, "many_paths_mode4.gaf"), [cuda_pathwise.KERNEL],
+                    launches, shapes)
+    paths = {k[5] for k in metrics.SHAPES if k[0] == cuda_pathwise.KERNEL}
+    if len(lines) != len(mseqs) - 1 or paths != {MANY_PATHS["n_paths"]}:
+        raise AssertionError(f"many paths: {len(lines)} lines, launched at P {paths}")
+    log(f"many paths mode 4: {cuda_pathwise.KERNEL} ran at P = {sorted(paths)}")
+    check_sample("many paths mode 4", 4, lines, mseqs, mnames,
+                 list(range(1, len(mseqs), MANY_PATHS["sample_step"])), many[1], workdir)
 
-    # 5. the long corpus: modes 0/2 through the ladder, 1/3 at full width
+    # 5. the long corpus: modes 0/2/4 through the ladder, 1/3/5 at full width
     lseqs, lnames = read_set(long[0])
     n_long = load_corpus(*long, 1)[0].n
     log(f"long corpus: {len(lseqs)} reads of {min(map(len, lseqs)) - 1}-"
@@ -455,6 +569,20 @@ def main() -> int:
             f"W = {poa_engine._long_w_hint[(mode, n_long)]}")
         check_sample(f"long mode {mode}", mode, lines, lseqs, lnames,
                      list(range(0, len(lseqs), LONG["sample_step"])), long[1], workdir)
+    # mode 4: every ladder of this run and of its CPU check starts at W 256
+    pathwise_engine._pw_w_hint.clear()
+    lines = cli_run("long mode 4", 4, long[0], long[1], os.path.join(workdir, "long_mode4.gaf"),
+                    [cuda_pathwise_win.KERNEL], launches, shapes)
+    reruns = metrics.EVENTS["pathwise_win_fullwidth"]
+    if len(lines) != len(lseqs) - 1:
+        raise AssertionError(f"long mode 4: {len(lines)} lines != {len(lseqs) - 1}")
+    rungs = sorted((k[1], k[4]) for k in metrics.SHAPES if k[0] == cuda_pathwise_win.KERNEL)
+    log(f"long mode 4: the ladder ran (reads, W) {rungs} and settled on W = "
+        f"{sorted(pathwise_engine._pw_w_hint.values())}; pathwise_win_fullwidth reruns: "
+        f"{reruns}")
+    check_sample("long mode 4", 4, lines, lseqs, lnames,
+                 list(range(1, len(lseqs), LONG["pathwise_sample_step"])), long[1], workdir,
+                 before=pathwise_engine._pw_w_hint.clear)
     fw = os.path.join(workdir, "long_full_width.fa")
     write_fasta(fw, lseqs[: LONG["full_width_reads"]], lnames[: LONG["full_width_reads"]])
     for mode, mod in ((1, cuda_poa_local), (3, cuda_poa_gap_local)):
@@ -465,11 +593,26 @@ def main() -> int:
         if len(lines) != LONG["full_width_reads"] or min(widths) <= 1024:
             raise AssertionError(f"long mode {mode}: {len(lines)} lines, widths {widths}")
         log(f"long mode {mode}: {mod.KERNEL} ran at {sorted(widths)} columns")
+    lines = cli_run("long mode 5", 5, fw, long[1], os.path.join(workdir, "long_mode5.gaf"),
+                    [cuda_pathwise.KERNEL], launches, shapes)
+    widths = {k[4] for k in metrics.SHAPES if k[0] == cuda_pathwise.KERNEL}
+    if len(lines) != LONG["full_width_reads"] - 1 or min(widths) <= 1024:
+        raise AssertionError(f"long mode 5: {len(lines)} lines, widths {widths}")
+    log(f"long mode 5: {cuda_pathwise.KERNEL} ran at {sorted(widths)} columns")
+    check_sample("long mode 5", 5, lines, lseqs, lnames,
+                 list(range(1, LONG["full_width_reads"], LONG["mode5_sample_step"])), long[1],
+                 workdir)
 
     # 6. kernels against their plain versions at the main path's shapes
     t0 = time.perf_counter()
-    corpora = {g.n: (g, reads) for g, reads in (load_corpus(*stretch), load_corpus(*long))}
-    kres = check_kernels(shapes, corpora, kernel_cases(example, long))
+    corpora = {}
+    for c in (stretch, long):
+        g, reads = load_corpus(*c)
+        corpora[("poa", g.n, 1)] = (g, reads)
+    for c in (stretch, many, long):
+        g, reads = load_corpus(*c, graph=PathGraph)
+        corpora[("path", g.n, g.paths_number)] = (g, reads)
+    kres = check_kernels(shapes, corpora, kernel_cases(example, long, workdir))
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 7. the whole run went through the port: no JAX, nothing of recgraph_tpu
@@ -484,14 +627,22 @@ def main() -> int:
     kernels = []
     for kid, r in kres.items():
         mod = r["spec"]["mod"]
-        kernels.append(dict(
-            name=mod.KERNEL, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
-            launches=launches.get(mod.KERNEL, 0), max_abs_err=r["err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None,
-        ))
-        if not kernels[-1]["launches"]:
-            raise AssertionError(f"{kid} {mod.KERNEL} was not launched on the main path")
+        # the kernel at its most launched shape; a view (K9a) is the same
+        # kernel at its shapes with that many paths
+        views = [(kid, mod.KERNEL, mod.REPLACES, r["timed"], launches.get(mod.KERNEL, 0))]
+        for vid, P, replaces in r["spec"].get("views", []):
+            timed = [t for t in r["timed"] if t["shape"][4] == P]
+            views.append((vid, f"{mod.KERNEL} (P = {P})", replaces, timed,
+                          sum(t["launches"] for t in timed)))
+        for vid, name, replaces, timed, n_launch in views:
+            if not timed or not n_launch:
+                raise AssertionError(f"{vid} {mod.KERNEL} was not launched on the main path")
+            t = timed[0]
+            kernels.append(dict(
+                name=name, route="cuda", source=mod.SOURCE, replaces=replaces,
+                launches=n_launch, max_abs_err=r["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            ))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,12 +2,13 @@
 
 Counterpart of ``recgraph_tpu/align/pipeline.py`` (``Options`` and
 ``_bta`` :37-66, ``_poa_align`` :69-90, ``_emit_records``/``_emit_poa``
-:115-174, ``run`` :202-225, the POA branch of ``_run_host`` :323-412 and
-``_run_poa_batched`` :534-585) for modes 0-3.  Engines:
+:115-174, ``run`` :202-225, the POA and pathwise branches of ``_run_host``
+:323-430 and ``_run_poa_batched`` :534-585) for modes 0-5.  Engines:
 
 - ``engine="torch"``  the port's fills and walks on ``Options.device``
   (CUDA kernels on ``"cuda"``, their plain versions on ``"cpu"``);
-- ``engine="oracle"`` the scalar spec, ``oracle.poa``.
+- ``engine="oracle"`` the scalar spec, ``oracle.poa`` and
+  ``oracle.pathwise``.
 
 Reference behaviours kept at this layer: bta = b + f * len('$'+read)
 with a saturating cast (main.rs:57); gap penalties o = -gap_open and
@@ -15,7 +16,10 @@ e = -gap_extension; the band warning for modes 0 and 2; amb-strand
 retries (modes 0/2 on a negative score and modes 1/3 always, keeping
 the reverse only when strictly better — except mode 1, which keeps the
 *forward* record when its score is lower, a reference inversion,
-main.rs:160-164); 1-based read numbers for the GAF writer.
+main.rs:160-164); 1-based read numbers for the GAF writer in modes 0-3
+and 0-based ones in modes 4/5 (main.rs:260,268), so that with ``-o`` the
+writer's truncate-at-number-1 rule drops read 0's pathwise line, as the
+reference does.  Modes 4/5 have no amb-strand retry.
 """
 
 from __future__ import annotations
@@ -28,23 +32,25 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import _backend, native
+from ..graph.pathgraph import PathGraph
 from ..graph.poagraph import PoaGraph
 from ..io import fasta, gfa
 from ..io.gaf import GafWriter
 from ..oracle import gaf_emit as oracle_gaf_emit
+from ..oracle import pathwise as oracle_pathwise
 from ..oracle import poa as oracle_poa
 from ..metrics import phase, phase_summary
-from ..ops import poa_engine
+from ..ops import pathwise_engine, poa_engine
 from ..ops.poa_engine import WalkState
 from ..scoring import ScoreMatrix
 
-PORTED_MODES = (0, 1, 2, 3)
+PORTED_MODES = (0, 1, 2, 3, 4, 5)
 ENGINES = ("torch", "oracle")
 _BAND_WARNING = "Band length probably too short, maybe try with larger b and f"
 
 
 def not_ported(mode: int) -> NotImplementedError:
-    item = {4: 12, 5: 12, 6: 14, 7: 14, 8: 13, 9: 13}.get(mode)
+    item = {6: 14, 7: 14, 8: 13, 9: 13}.get(mode)
     where = f"ROADMAP queue 1, item {item}" if item else "modes are 0..9"
     return NotImplementedError(f"mode {mode}: not yet ported ({where})")
 
@@ -152,7 +158,7 @@ def _emit_poa(mode, st, seq, name, amb_mode, g):
 
 
 def run(opts: Options) -> None:
-    """Top-level orchestration (reference main.rs:25-329), modes 0-3.
+    """Top-level orchestration (reference main.rs:25-329), modes 0-5.
 
     RECGRAPH_METRICS=1 prints reads/s, cells/s and the phase breakdown
     to stderr.  Diagnostics go to stderr so the GAF stream on stdout
@@ -167,19 +173,22 @@ def run(opts: Options) -> None:
     sm = ScoreMatrix.create(opts.matrix, opts.match_score, -opts.mismatch_score)
     writer = GafWriter(opts.out_file)
     mode = opts.alignment_mode
-    g = PoaGraph.from_gfa(parsed, amb_mode=False)
-    g_rev = None
-
-    def rev_graph():
-        nonlocal g_rev
-        if g_rev is None:
-            g_rev = PoaGraph.from_gfa(parsed, amb_mode=True)
-        return g_rev
-
-    if opts.engine == "torch":
-        _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph)
+    if mode in (4, 5):
+        _run_pathwise(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer)
     else:
-        _run_poa_oracle(opts, mode, sequences, names, g, sm, writer, rev_graph)
+        g = PoaGraph.from_gfa(parsed, amb_mode=False)
+        g_rev = None
+
+        def rev_graph():
+            nonlocal g_rev
+            if g_rev is None:
+                g_rev = PoaGraph.from_gfa(parsed, amb_mode=True)
+            return g_rev
+
+        if opts.engine == "torch":
+            _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph)
+        else:
+            _run_poa_oracle(opts, mode, sequences, names, g, sm, writer, rev_graph)
 
     print(f"Done in {int(time.time() - t0)}.", file=sys.stderr)
     if os.environ.get("RECGRAPH_METRICS"):
@@ -272,3 +281,18 @@ def _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph):
     with phase("write"):
         for i, rec in enumerate(records):
             writer.write(rec.to_string(), i + 1)
+
+
+def _run_pathwise(opts, mode, sequences, names, g, sm, writer):
+    """Modes 4/5 (the pathwise branch of recgraph_tpu's _run_host,
+    pipeline.py:413-430): the torch engine's fills and walks, or the
+    scalar oracle per read; 0-based read numbers."""
+    if opts.engine == "torch":
+        records = pathwise_engine.run_batch_walks(mode, sequences, g, sm, opts.device)
+    else:
+        exec_ = oracle_pathwise.exec_global if mode == 4 else oracle_pathwise.exec_semiglobal
+        records = [exec_(s, g, sm) for s in sequences]
+    with phase("write"):
+        for i, rec in enumerate(records):
+            rec.query_name = names[i]
+            writer.write(rec.to_string(), i)

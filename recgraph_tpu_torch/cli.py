@@ -7,7 +7,7 @@ Flag-compatible with the reference CLI (reference: src/args_parser.rs):
 with -m/-M/-X/-t/-O/-E/-r/-R/-B/-s/-b/-f/-o, plus ``--engine
 {torch,oracle}`` and ``--device {cuda,cpu}``.  The device defaults to
 ``cuda``; without CUDA the run raises rather than moving to the CPU.
-Modes 4-9 and multi-process runs raise NotImplementedError until their
+Modes 6-9 and multi-process runs raise NotImplementedError until their
 slices are ported.
 """
 
@@ -38,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="0: global POA, 1: local POA, 2: affine gap POA, 3: local gap POA, "
         "4: global pathwise, 5: semiglobal pathwise, 6/7: pathwise affine gap "
         "(EXPERIMENTAL), 8: global recombination, 9: semiglobal recombination "
-        "(this port runs modes 0-3)",
+        "(this port runs modes 0-5)",
     )
     p.add_argument("-M", "--match", dest="match_score", type=int, default=2)
     p.add_argument("-X", "--mismatch", dest="mismatch_score", type=int, default=4)

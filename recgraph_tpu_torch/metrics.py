@@ -7,7 +7,9 @@ where the pipeline synchronises with the device.  Each kernel wrapper
 adds one to ``LAUNCHES[name]`` where it launches its kernel, so a run
 can show that it went through the kernels, and to ``SHAPES[(name, B,
 n, Lp, W)]``, so that a run can hold each kernel to its plain version
-at the shapes the run gave it.
+at the shapes the run gave it.  ``EVENTS`` counts what a run should
+show without it being a failure: the mode-4 long reads that the window
+ladder sends to the full-width fill (``pathwise_win_fullwidth``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import time
 from collections import Counter
 
 LAUNCHES: Counter = Counter()
-SHAPES: Counter = Counter()           # (kernel, reads, rows, Lp, stored width)
+SHAPES: Counter = Counter()           # (kernel, reads, rows, Lp, stored width[, paths])
+EVENTS: Counter = Counter()           # name -> count
 PHASES: Counter = Counter()           # name -> exclusive seconds
 _stack: list[list] = []               # [name, child_seconds] frames
 
@@ -44,8 +47,9 @@ def phase(name: str):
 
 
 def reset_phases() -> None:
-    """Zero every counter: phases and kernel launches."""
+    """Zero every counter: phases, kernel launches and events."""
     PHASES.clear()
+    EVENTS.clear()
     _stack.clear()
     LAUNCHES.clear()
     SHAPES.clear()

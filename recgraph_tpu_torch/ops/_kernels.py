@@ -54,6 +54,12 @@ _SIGNATURES = {
     # seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp, o, e, m,
     # y, best_val, best_i, best_j, packed, packed_x, packed_y, stream
     "rgt_poa_gap_local_fill": [_P] * 6 + [_I] * 6 + [_P] * 8 + [_P],
+    # seq, table, codes, grep, gpred, pslot, B, n, P, Lp, Gd, semiglobal,
+    # G, kidx, flag, A, stream
+    "rgt_pathwise_fill": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_P],
+    # seq, L, table, codes, grep, gpred, pslot, rmin, B, n, P, Lp, Gd, W,
+    # gw, kidx, flag, rowv, bsp, Aw, ws, bound, stream
+    "rgt_pathwise_win_fill": [_P] * 8 + [_I] * 6 + [_P] * 8 + [_P],
 }
 
 _lib = None
@@ -182,8 +188,8 @@ def check_inputs(kernel, dg, table, seq, L, bta=None):
 def launch(kernel: str, shape: tuple, dev, *args) -> None:
     """Call the C entry ``rgt_<kernel>_fill`` on ``dev``'s current stream,
     raise on a launch error, and count the launch with its ``shape``
-    (reads, rows, Lp, stored width).  Tensor arguments pass as device
-    pointers."""
+    (reads, rows, Lp, stored width; the pathwise kernels add paths).
+    Tensor arguments pass as device pointers."""
     lib = load()
     fn = getattr(lib, f"rgt_{kernel}_fill")
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]

@@ -1,7 +1,8 @@
 """Host->device graph and read encodings.
 
 Counterpart of ``recgraph_tpu/ops/encode.py:25-131`` (``PoaDeviceGraph``,
-``_build_poa_device_graph``) and ``:187-226`` (``encode_reads``,
+``_build_poa_device_graph``), ``:134-185`` (``PathDeviceGraph`` without
+the reverse fill's ``qsrc_of``) and ``:187-226`` (``encode_reads``,
 ``encode_read_aux``).  Tensors live on an explicit device; the mesh
 placement of ``encode.py:57-88`` belongs to the multi-GPU slice.
 """
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import scoring
+from ..graph.pathgraph import PathGraph, pathwise_meta
 from ..graph.poagraph import PoaGraph
 
 _TENSOR_FIELDS = (
@@ -119,14 +121,118 @@ def build_poa_device_graph(g: PoaGraph, device="cpu") -> PoaDeviceGraph:
     )
 
 
-def poa_device_graph(g: PoaGraph, device="cpu") -> PoaDeviceGraph:
-    """The graph's device encoding, cached on the graph per device."""
+def _per_device(g, device, build):
+    """``build(g, device)``, cached on the graph per device."""
     dev = torch.device(device)
     cache = g.__dict__.setdefault("_torch_device_graphs", {})
     dg = cache.get(str(dev))
     if dg is None:
-        dg = cache[str(dev)] = build_poa_device_graph(g, dev)
+        dg = cache[str(dev)] = build(g, dev)
     return dg
+
+
+def poa_device_graph(g: PoaGraph, device="cpu") -> PoaDeviceGraph:
+    """The graph's device encoding, cached on the graph per device."""
+    return _per_device(g, device, build_poa_device_graph)
+
+
+_PATH_TENSOR_FIELDS = ("codes", "node_start", "paths_on", "alphas", "rep_of", "pred_of")
+_PATH_BOOL_FIELDS = ("node_start", "paths_on")
+
+
+@dataclass(frozen=True, eq=False)
+class PathDeviceGraph:
+    """Dense arrays for the pathwise fills (modes 4/5), as torch tensors.
+
+    Counterpart of ``recgraph_tpu/ops/encode.py:134-185``.  ``rep_of`` /
+    ``pred_of`` materialise the reference's alpha/delta group semantics
+    (``graph.pathgraph.pathwise_meta``): at row i every path p moves in
+    the direction chosen by its group representative ``rep_of[i, p]``,
+    reading from predecessor row ``pred_of[i, p]``.
+    """
+
+    codes: torch.Tensor       # int32[n]
+    node_start: torch.Tensor  # bool[n]
+    paths_on: torch.Tensor    # bool[n, P]
+    alphas: torch.Tensor      # int32[n]
+    rep_of: torch.Tensor      # int32[n, P] (-1 off-path)
+    pred_of: torch.Tensor     # int32[n, P] (-1 off-path)
+    n: int
+    paths_number: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, device="cpu") -> "PathDeviceGraph":
+        """Build from a dict of numpy arrays (the JAX graph's fields as
+        ``np.asarray``) plus its ``n`` and ``paths_number``."""
+        kw = {}
+        for f in _PATH_TENSOR_FIELDS:
+            a = np.asarray(arrays[f])
+            a = a.astype(bool) if f in _PATH_BOOL_FIELDS else a.astype(np.int32)
+            kw[f] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return cls(n=int(arrays["n"]), paths_number=int(arrays["paths_number"]), **kw)
+
+    to_numpy = PoaDeviceGraph.to_numpy
+    cached = PoaDeviceGraph.cached
+    host = PoaDeviceGraph.host
+
+
+def build_path_device_graph(g: PathGraph, device="cpu") -> PathDeviceGraph:
+    """Port of ``_build_path_device_graph`` (encode.py:172-184)."""
+    rep_of, pred_of = pathwise_meta(g)
+    return PathDeviceGraph.from_numpy(
+        dict(codes=g.codes, node_start=g.node_start, paths_on=g.paths_nodes,
+             alphas=g.alphas, rep_of=rep_of, pred_of=pred_of, n=g.n,
+             paths_number=g.paths_number),
+        device,
+    )
+
+
+def path_device_graph(g: PathGraph, device="cpu") -> PathDeviceGraph:
+    """The graph's pathwise device encoding, cached on the graph per device."""
+    return _per_device(g, device, build_path_device_graph)
+
+
+def group_table(dg: PathDeviceGraph):
+    """The groups of each row that the pathwise kernels solve once:
+    the distinct (rep, pred) pairs over the row's on-path lanes, in
+    path order (``pallas_pathwise._group_meta``, :402-437, without its
+    padding of the rows to a multiple of the grid step).
+
+    Returns (grep int32[n, Gd] with -1 past a row's groups, gpred
+    int32[n, Gd] with 0 there, pslot int32[n, P]: each on-path lane's
+    group column, -1 off-path), on ``dg.device``; Gd is the most groups
+    of any row 1..n-2 (at least 1).  Rows 0 and n-1 have no groups.
+    """
+
+    def build():
+        h = dg.host()
+        rep, pred, on = h["rep_of"], h["pred_of"], h["paths_on"]
+        n, P = dg.n, dg.paths_number
+        pairs_of = [[] for _ in range(n)]
+        pslot = np.full((n, P), -1, np.int32)
+        for i in range(1, n - 1):
+            slot: dict[tuple[int, int], int] = {}
+            for q in np.flatnonzero(on[i]):
+                t = (int(rep[i, q]), int(pred[i, q]))
+                if min(t) < 0:   # pathwise_meta covers every on-path lane
+                    raise ValueError(f"row {i}, path {q}: on the node but in no group")
+                if t not in slot:
+                    slot[t] = len(pairs_of[i])
+                    pairs_of[i].append(t)
+                pslot[i, q] = slot[t]
+        Gd = max(max((len(p) for p in pairs_of[1 : n - 1]), default=1), 1)
+        grep = np.full((n, Gd), -1, np.int32)
+        gpred = np.zeros((n, Gd), np.int32)
+        for i, pairs in enumerate(pairs_of):
+            grep[i, : len(pairs)] = [a for a, _ in pairs]
+            gpred[i, : len(pairs)] = [b for _, b in pairs]
+        return tuple(torch.from_numpy(a).to(dg.device) for a in (grep, gpred, pslot))
+
+    return dg.cached("_group_table", build)
 
 
 def encode_reads(sequences: list[str], pad_to: int | None = None, device="cpu"):

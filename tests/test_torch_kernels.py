@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K6 against their plain torch versions, on the card.
+"""The CUDA kernels K1-K7 and K10 against their plain torch versions, on
+the card (K7 also stands for the TPU's path-tiled K9a).
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports
 no JAX and nothing of the JAX package, and uses no conftest fixture, so
@@ -14,22 +15,28 @@ import contextlib
 import io
 import os
 import random
+import sys
 
 import pytest
 import torch
 
 from recgraph_tpu_torch import fuzz, metrics
 from recgraph_tpu_torch.align.pipeline import Options, run
+from recgraph_tpu_torch.graph.pathgraph import PathGraph
 from recgraph_tpu_torch.graph.poagraph import PoaGraph
 from recgraph_tpu_torch.io import fasta, gfa
 from recgraph_tpu_torch.ops import (
-    cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global,
-    cuda_poa_global_win, cuda_poa_local, poa_engine, poa_gap_engine,
+    cuda_pathwise, cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win,
+    cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win, cuda_poa_local,
+    pathwise_engine, pathwise_window, poa_engine, poa_gap_engine,
 )
-from recgraph_tpu_torch.ops.encode import encode_read_aux, encode_reads, poa_device_graph
+from recgraph_tpu_torch.ops.encode import (
+    encode_read_aux, encode_reads, path_device_graph, poa_device_graph,
+)
 from recgraph_tpu_torch.scoring import ScoreMatrix
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 EXAMPLE = (os.path.join(ROOT, "example", "reads.fa"),
            os.path.join(ROOT, "example", "graph.gfa"))
 PENALTIES = [(-4, -2), (1, -2), (0, -1)]
@@ -156,5 +163,140 @@ def test_cuda_pipeline_matches_cpu_amb_strand(cuda, tmp_path, mode):
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
             run(Options(str(reads), EXAMPLE[1], alignment_mode=mode, amb_strand=True,
                         device=device))
+        out[device] = buf.getvalue()
+    assert out["cuda"] == out["cpu"] and len(out["cpu"].splitlines()) == 12
+
+
+def _long_reads(gfa_path, k, seed):
+    """k full-haplotype reads with 2 % substitutions (chip_smoke.make_long's recipe)."""
+    rng = random.Random(seed)
+    walks, segs = {}, {}
+    with open(gfa_path) as fh:
+        for ln in fh:
+            f = ln.rstrip("\n").split("\t")
+            if f[0] == "P":
+                walks[f[1]] = [int(x[:-1]) for x in f[2].split(",")]
+            elif f[0] == "S":
+                segs[int(f[1])] = f[2]
+    reads = []
+    for _ in range(k):
+        s = "".join(segs[x] for x in walks[rng.choice(sorted(walks))])
+        reads.append("$" + "".join(rng.choice("ACGT") if rng.random() < 0.02 else c
+                                   for c in s))
+    return reads
+
+
+def _assert_equal(got, ref, what):
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(got) == len(ref)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (what, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_pathwise_kernel_matches_plain(cuda, seed):
+    """K7 on random DAGs (1-9 paths, up to 3 predecessor edges a node)
+    and reads up to 2,100 columns (three column tiles), both modes, both
+    tables, at widths where the JAX engine's packed chain fits and where
+    it does not."""
+    rng = random.Random(500 + seed)
+    gf = fuzz.random_gfa(rng, n_nodes=6 + 4 * seed, n_paths=1 + seed, cover_all=True)
+    g = PathGraph.from_gfa(gf)
+    reads = [fuzz.random_read(rng, gf) for _ in range(5)] + ["$A", "$" + "ACGT" * 40]
+    if seed % 3 == 0:
+        reads.append("$" + "".join(rng.choice("ACGT") for _ in range(2100)))
+    sm = ScoreMatrix.create("HOXD70" if seed % 2 else "none", 2, -4)
+    dg = path_device_graph(g, cuda)
+    table = torch.as_tensor(sm.table, dtype=torch.int32).to(cuda)
+    seq, _ = encode_reads(reads, device=cuda)
+    for semiglobal in (False, True):
+        _assert_equal(cuda_pathwise.fill_pathwise_cuda(dg, table, seq, semiglobal),
+                      pathwise_engine.fill_pathwise_plain(dg, table, seq, semiglobal),
+                      (seed, semiglobal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus", ["example", "p126"])
+def test_pathwise_kernel_matches_plain_corpora(cuda, tmp_path, corpus):
+    """K7 on the example graph (23 paths, up to 9 groups a row) and on a
+    126-path graph, the shape at which the JAX dispatch takes K9a."""
+    if corpus == "example":
+        reads_fa, gfa_path = EXAMPLE
+    else:
+        from make_synthetic import make
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            make(str(tmp_path), n_back=80, n_reads=8, seed=7, n_paths=126)
+        reads_fa, gfa_path = str(tmp_path / "reads.fa"), str(tmp_path / "graph.gfa")
+    g = PathGraph.from_gfa(gfa.parse_gfa(gfa_path))
+    reads = fasta.get_sequences(reads_fa)[0][:8]
+    dg = path_device_graph(g, cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(cuda)
+    seq, _ = encode_reads(reads, pad_to=256, device=cuda)
+    for semiglobal in (False, True):
+        _assert_equal(cuda_pathwise.fill_pathwise_cuda(dg, table, seq, semiglobal),
+                      pathwise_engine.fill_pathwise_plain(dg, table, seq, semiglobal),
+                      (corpus, semiglobal))
+
+
+@pytest.mark.cuda
+def test_pathwise_win_kernel_matches_plain(cuda, tmp_path):
+    """K10 on long reads at window widths from 16 (the guard fails) to
+    1,024 (several column tiles)."""
+    from make_synthetic import make
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        make(str(tmp_path), n_back=600, n_reads=1, seed=11)
+    gfa_path = str(tmp_path / "graph.gfa")
+    g = PathGraph.from_gfa(gfa.parse_gfa(gfa_path))
+    reads = _long_reads(gfa_path, 3, 5) + ["$" + "ACGT" * 30]
+    dg = path_device_graph(g, cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(cuda)
+    seq, L = encode_reads(reads, device=cuda)
+    rmin = pathwise_window.rmin_tensor(dg)
+    for W in (16, 64, 256, 1024):
+        _assert_equal(pathwise_window.fill_pathwise_win_best(dg, table, seq, L, W, rmin),
+                      pathwise_window.fill_pathwise_win_plain(dg, table, seq, L, W, rmin), W)
+
+
+@pytest.mark.cuda
+def test_pathwise_dispatch_launches_kernels_and_counts(cuda):
+    seqs, _ = fasta.get_sequences(EXAMPLE[0])
+    g = PathGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+    dg = path_device_graph(g, cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(cuda)
+    seq, L = encode_reads(seqs[:4], device=cuda)
+    rmin = pathwise_window.rmin_tensor(dg)
+    metrics.reset_phases()
+    pathwise_engine.fill_pathwise_best(dg, table, seq, False)
+    pathwise_engine.fill_pathwise_best(dg, table, seq, True)
+    pathwise_window.fill_pathwise_win_best(dg, table, seq, L, 64, rmin)
+    B, Lp = seq.shape
+    P = g.paths_number
+    assert metrics.LAUNCHES == {cuda_pathwise.KERNEL: 2, cuda_pathwise_win.KERNEL: 1}
+    assert metrics.SHAPES == {(cuda_pathwise.KERNEL, B, g.n, Lp, Lp, P): 2,
+                              (cuda_pathwise_win.KERNEL, B, g.n, Lp, 64, P): 1}
+    with pytest.raises(ValueError, match="int32"):
+        cuda_pathwise.fill_pathwise_cuda(dg, table, seq.long(), False)
+    with pytest.raises(ValueError, match="window width"):
+        cuda_pathwise_win.fill_pathwise_win_cuda(dg, table, seq, L, 4, rmin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [4, 5])
+def test_cuda_pipeline_matches_cpu_pathwise(cuda, tmp_path, mode):
+    """Modes 4/5 through the whole pipeline on the card equal the CPU run
+    (which the CPU tests hold against the JAX pipeline and the goldens)."""
+    seqs, names = fasta.get_sequences(EXAMPLE[0])
+    reads = tmp_path / "reads.fa"
+    reads.write_text("".join(f">{n}\n{s[1:]}\n" for n, s in zip(names[:12], seqs[:12])))
+    out = {}
+    for device in ("cpu", "cuda"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            run(Options(str(reads), EXAMPLE[1], alignment_mode=mode, device=device))
         out[device] = buf.getvalue()
     assert out["cuda"] == out["cpu"] and len(out["cpu"].splitlines()) == 12

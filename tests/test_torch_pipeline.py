@@ -1,7 +1,7 @@
 """The port's pipeline and CLI on the CPU: goldens, amb-strand against
 the JAX pipeline, chunking, the oracle engine and unported paths (modes
-0/1; modes 2/3 in test_torch_pipeline_gap.py, long reads in
-test_torch_long_reads.py).
+0/1; modes 2/3 in test_torch_pipeline_gap.py, 4/5 in
+test_torch_pipeline_pathwise.py, long reads in test_torch_long_reads.py).
 
 The comparisons are byte equality of GAF output.
 """
@@ -121,7 +121,7 @@ def test_oracle_engine(example_paths, tmp_path, mode):
 
 
 def test_unported_paths_raise(example_paths):
-    for mode in (4, 5, 9):
+    for mode in (6, 7, 9):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             run(Options(*example_paths, alignment_mode=mode, device="cpu"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
