@@ -9,43 +9,50 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build    compile and load the CUDA kernels (csrc/*.cu, sm_90a, one nvcc
             per source, all started together);
 3. goldens  the port's pipeline on example/ for mode0, mode1, mode1_hoxd70,
-            mode2, mode3, mode4 and mode5, byte-equal to tests/goldens/*.gaf;
+            mode2, mode3, mode4, mode5, mode8, mode9 and mode8_R10_r2_B05
+            (-R 10 -r 2 -B 0.5), byte-equal to tests/goldens/*.gaf;
 4. stretch  the CLI on the 10,000-read stretch corpus
             (tools/make_synthetic.make(dir, 700, 10000, 42)) for -m 0..5:
             line count (modes 4/5 drop read 0's line with -o, as the
             reference does), mode 4's first lines byte-equal to
             tests/goldens/stretch_mode4_sample.gaf, a sample byte-equal to
             the port's CPU run on the same reads, reads/s, the phase
-            breakdown and peak memory; then -m 4 on 512 reads of the
-            128-path corpus make(dir, 700, 512, 42, n_paths=128), the
-            shape at which the JAX package takes its path-tiled kernel;
+            breakdown and peak memory; then -m 8 and -m 9 on the same
+            corpus (K7, K8 and S1; the split search's rounds and pairs);
+            then -m 4 and -m 8 on 512 reads of the 128-path corpus
+            make(dir, 700, 512, 42, n_paths=128), the shape at which the
+            JAX package takes its path-tiled kernels;
 5. long     the CLI on 512 reads of the long corpus (the recipe of
             bench.py:78-110, written out below) for -m 0, -m 2 and -m 4:
             the windows the ladder ran (and, in mode 4, the reads rerun
             at full width), reads/s, phases, a sample byte-equal to the
             CPU run; then -m 1, -m 3 and -m 5 on 64 long reads at full
-            width;
-6. kernels  K1-K7 and K10 against their plain torch versions on the card,
+            width, and -m 8 and -m 9 on 32 of them (full width);
+6. kernels  K1-K8, K10 and S1 against their plain torch versions on the card,
             all outputs exactly equal, at every launch shape of phases 4-5
             (reads, rows, Lp, stored width[, paths], as metrics.SHAPES
             recorded them; the leading reads of that corpus), with kernel
             and plain times (CUDA events) and the bound at each; then on
             the example corpus, three seeded random graphs, HOXD70 (K2,
-            K5, K7), (o, e) = (+1, -2) (K4, K5), K1 on 64 long reads at
-            full width, K3/K6/K10 at W = 32, where reads overflow, and K7
-            in mode 5, on a 126-path graph and past the JAX engine's
-            packed-chain gate;
+            K5, K7, K8), (o, e) = (+1, -2) (K4, K5), K1 on 64 long reads at
+            full width, K3/K6/K10 at W = 32, where reads overflow, K7 in
+            mode 5 and K8 in mode 9, on a 126-path graph and past the JAX
+            engine's packed-chain gate, K8 on the fragment graphs whose
+            reverse graphs have delta-leak rows (clone rows, ghost-alpha
+            rows), and S1 (bitwise f32) with r = 0.1, with R = r = 0
+            (ties) and on columns with no valid pair;
 7. imports  no jax* and no recgraph_tpu* module was imported;
 8. result   the nvidia-smi line, one JSON line with every kernel (times
-            and bound at the shape it was launched at most often; K9a, the
-            TPU's path-tiled variant of K7, is K7's kernel at the
-            128-path shapes), and the last line {"ok": true, "device":
-            {...}}.
+            and bound at the shape it was launched at most often; K9a and
+            K9b, the TPU's path-tiled variants of K7 and K8, are their
+            kernels at the 128-path shapes), and the last line {"ok":
+            true, "device": {...}}.
 
 Every launch counter is set to 0 just before each CLI run of phases 4-5
 and read just after; the run fails if a kernel of its path was not
 launched.  The tolerance of every comparison is exact equality: all
-outputs are int32 DP values, indices and GAF bytes.  Needs CUDA, nvcc
+outputs are int32 DP values, indices and GAF bytes, and S1's f32 column
+maxima, which the kernel rounds as its plain version does.  Needs CUDA, nvcc
 (sm_90a) and a C++ compiler; exits nonzero without CUDA.
 """
 
@@ -62,9 +69,10 @@ from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STRETCH = dict(n_back=700, n_reads=10000, seed=42)
-MANY_PATHS = dict(n_back=700, n_reads=512, seed=42, n_paths=128, sample_step=97)
-LONG = dict(n_back=1200, seed=11, n_reads=512, full_width_reads=64, sample_step=64,
-            pathwise_sample_step=128, mode5_sample_step=32)
+MANY_PATHS = dict(n_back=700, n_reads=512, seed=42, n_paths=128, sample_step=97,
+                  rec_sample_step=256)
+LONG = dict(n_back=1200, seed=11, n_reads=512, full_width_reads=64, sample_step=128,
+            pathwise_sample_step=128, mode5_sample_step=32, rec_reads=32, rec_sample_step=32)
 GOLDENS = {
     "mode0": dict(alignment_mode=0),
     "mode1": dict(alignment_mode=1),
@@ -73,12 +81,17 @@ GOLDENS = {
     "mode3": dict(alignment_mode=3),
     "mode4": dict(alignment_mode=4),
     "mode5": dict(alignment_mode=5),
+    "mode8": dict(alignment_mode=8),
+    "mode9": dict(alignment_mode=9),
+    "mode8_R10_r2_B05": dict(alignment_mode=8, base_rec_cost=10, multi_rec_cost=2.0,
+                             rec_band_width=0.5),
 }
 # stretch sample checked against the CPU run: the first HEAD reads and
-# every STEP-th after them (fewer for the slower affine-gap and pathwise
-# CPU fills)
-SAMPLE = {0: (128, 79), 1: (128, 79), 2: (32, 313), 3: (32, 313), 4: (32, 313),
-          5: (32, 313)}
+# every STEP-th after them (fewer for the slower affine-gap, pathwise and
+# recombination CPU fills; modes 0-3 cut from 253 and 64 reads to keep
+# the whole script inside its time limit)
+SAMPLE = {0: (32, 313), 1: (32, 313), 2: (16, 625), 3: (16, 625), 4: (32, 313),
+          5: (32, 313), 8: (8, 1249), 9: (8, 1249)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12   # H100 SXM int32 issue rate (half the 67 TFLOP/s fp32 rate)
 O, E = -4, -2               # the CLI's default gap penalties
@@ -190,7 +203,8 @@ def kernel_cases(example, long, workdir):
     shapes, keyed by (graph kind, name): POA graphs of the example
     corpus, 64 long reads and three random graphs; path graphs of the
     example corpus (23 paths, up to 9 groups a row), a 126-path graph,
-    8 long reads and the same three random graphs."""
+    8 long reads, the same three random graphs and the fragment graphs
+    whose reverse graphs have delta-leak rows (``fuzz.LEAK_SEEDS``)."""
     from recgraph_tpu_torch import fuzz
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.graph.poagraph import PoaGraph
@@ -207,14 +221,26 @@ def kernel_cases(example, long, workdir):
         reads = [fuzz.random_read(rng, gf) for _ in range(8)]
         cases[("poa", f"random{seed}")] = (PoaGraph.from_gfa(gf), reads)
         cases[("path", f"random{seed}")] = (PathGraph.from_gfa(gf), reads)
+    for seed in fuzz.LEAK_SEEDS:
+        gf = fuzz.fragment_gfa(seed)
+        reads = fuzz.fragment_reads(random.Random(seed * 31 + 5), gf, k=4)
+        cases[("path", f"leak{seed}")] = (PathGraph.from_gfa(gf), reads)
     return cases
 
 
-def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None):
+def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None, rec=(4, 0.1),
+         dead=False):
     """One exactness case: the named graph and reads, the scoring table,
-    the window width, the affine penalties, mode 5 (``semi``) and the
-    padded read width."""
-    return dict(name=name, matrix=matrix, W=W, oe=oe, semi=semi, pad_to=pad_to)
+    the window width (S1: the pairs), the affine penalties, mode 5 or 9
+    (``semi``), the padded read width, and for S1 the recombination
+    costs (R, r) and whether no pair is valid (``dead``)."""
+    return dict(name=name, matrix=matrix, W=W, oe=oe, semi=semi, pad_to=pad_to, rec=rec,
+                dead=dead)
+
+
+def corpus_kind(spec):
+    """The kind of graph a kernel's corpora and cases are keyed by."""
+    return "poa" if spec["graph"] == "poa" else "path"
 
 
 def kernel_specs():
@@ -224,10 +250,12 @@ def kernel_specs():
     the int32 operations per stored cell and per predecessor.  K7 is
     also checked in mode 5 at its most launched shape, and its 128-path
     shapes stand for K9a, the TPU's path-tiled variant."""
+    from recgraph_tpu_torch import fuzz
     from recgraph_tpu_torch.ops import (
-        cuda_pathwise, cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win,
-        cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win, cuda_poa_local,
-        pathwise_engine, pathwise_window, poa_engine, poa_gap_engine,
+        cuda_pathwise, cuda_pathwise_rev, cuda_pathwise_win, cuda_poa_gap_global,
+        cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win,
+        cuda_poa_local, cuda_split_summary, pathwise_engine, pathwise_window, poa_engine,
+        poa_gap_engine, recombination_engine,
     )
 
     def over(x, got):
@@ -242,6 +270,7 @@ def kernel_specs():
     poa = [case(c) for c in ("example", "random101", "random202", "random303")]
     win = [dict(c, W=32) for c in poa]   # W = 32: some reads overflow
     rand = [case(f"random{s}", semi=semi) for s in (101, 202, 303) for semi in (False, True)]
+    leak = [case(f"leak{s}", semi=semi) for s in fuzz.LEAK_SEEDS for semi in (False, True)]
     return [
         dict(id="K1", mod=cuda_poa_global, kern=cuda_poa_global.fill_global_cuda,
              plain=poa_engine.fill_global_plain, graph="poa", ops=(24, 4),
@@ -280,6 +309,22 @@ def kernel_specs():
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.W, pathwise_window.rmin_tensor(x.dg)),
              note=guard, cases=[case("long8", W=32), case("long8", W=1024),
                                 case("example", W=32), case("example", "HOXD70", W=64)]),
+        dict(id="K8", mod=cuda_pathwise_rev,
+             kern=cuda_pathwise_rev.fill_pathwise_rev_cuda,
+             plain=recombination_engine.fill_pathwise_rev_plain, graph="rev", ops=(16, 0),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, not x.semi), main_also=dict(semi=True),
+             views=[("K9b", MANY_PATHS["n_paths"], cuda_pathwise_rev.REPLACES_BIGP)],
+             cases=leak + [case("example"), case("example", semi=True),
+                           case("example", "HOXD70"),
+                           case("example", "HOXD70", semi=True, pad_to=320),
+                           case("p126", pad_to=256), case("p126", semi=True, pad_to=256)]),
+        dict(id="S1", mod=cuda_split_summary,
+             kern=cuda_split_summary.col_summary_cuda,
+             plain=recombination_engine.col_summary_plain, graph="split", ops=(10, 0),
+             args=lambda x: (*x.inputs, x.geom, *x.rec, x.bidx, x.cols), main_also=dict(semi=True),
+             cases=[case("example"), case("example", semi=True), case("example", rec=(0, 0.0)),
+                    case("example", rec=(10, 2.0)), case("example", dead=True),
+                    case("random101"), case("leak4")]),
     ]
 
 
@@ -292,23 +337,78 @@ def bound(spec, x, got):
     int32 operations over the int32 rate.  Bytes: each input read once
     (the tensor arguments: reads, lengths, band slack, table, rmin; and
     the graph arrays the kernel reads: for POA codes, predecessors,
-    fallbacks and distances, for paths the codes and the group table)
-    and each output written once (every tensor the kernel returns).
-    Operations: per stored cell (reads x rows x width x paths), a fixed
-    count for the recurrence plus a count per predecessor, at this
-    graph's mean predecessors per row."""
+    fallbacks and distances, for paths the codes and the group table,
+    and for the reverse graph its qsrc table; for S1 the six summaries
+    at its pairs' columns, the geometry and the pairs) and each output
+    written once (every tensor the kernel returns).  Operations: per
+    stored cell (reads x rows x width x paths), a fixed count for the
+    recurrence plus a count per predecessor, at this graph's mean
+    predecessors per row; for S1 a fixed count per candidate pair that
+    has both sides on their paths (the pairs the kernel evaluates)."""
     from recgraph_tpu_torch.ops.encode import group_table
 
-    B, Lp = x.seq.shape
-    dg = x.dg
-    if spec["graph"] == "poa":
-        graph, P, preds = 4 * dg.n * (4 + dg.max_preds), 1, float(dg.pred_mask.sum()) / dg.n
-    else:
-        graph, P, preds = 4 * dg.n + nbytes(group_table(dg)), dg.paths_number, 0.0
-    t_bytes = (nbytes(spec["args"](x)) + graph + nbytes(got)) / HBM_BYTES_PER_S * 1e3
     c0, c1 = spec["ops"]
-    t_ops = B * dg.n * x.W * P * (c0 + c1 * preds) / INT32_OPS_PER_S * 1e3
+    if spec["graph"] == "split":
+        K, (B, I, Lp) = x.bidx.shape[0], x.inputs[0].shape
+        b, c = x.bidx.long(), x.cols.long()
+        nvf = x.inputs[2][b, :, c].sum(1).double()
+        nvr = x.inputs[5][b, :, c].sum(1).double()
+        t_bytes = (K * I * 18 + I * 14 + nbytes((x.bidx, x.cols)) + nbytes(got)) / HBM_BYTES_PER_S
+        t_ops = float((nvf * nvr).sum()) * c0 / INT32_OPS_PER_S
+    else:
+        B, Lp = x.seq.shape
+        dg = x.dg
+        if spec["graph"] == "poa":
+            graph, P = 4 * dg.n * (4 + dg.max_preds), 1
+            preds = float(dg.pred_mask.sum()) / dg.n
+        else:
+            graph, P, preds = 4 * dg.n + nbytes(group_table(dg)), dg.paths_number, 0.0
+            if dg.qsrc_of is not None:
+                graph += nbytes((dg.qsrc_of,))
+        t_bytes = (nbytes(spec["args"](x)) + graph + nbytes(got)) / HBM_BYTES_PER_S
+        t_ops = B * dg.n * x.W * P * (c0 + c1 * preds) / INT32_OPS_PER_S
+    t_bytes, t_ops = t_bytes * 1e3, t_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_reverse: dict = {}
+
+
+def reverse_of(g):
+    """The reverse graph of ``g``, built once per graph."""
+    if id(g) not in _reverse:
+        _reverse[id(g)] = (g, g.reverse())
+    return _reverse[id(g)][1]
+
+
+def split_case(g, reads, c, x):
+    """S1's inputs for case ``c``: K7 and K8 on the card for the reads,
+    the per-cell best paths, the geometry and the pairs (``c["W"]``
+    pairs spread over the reads and columns, or every interior column of
+    every read)."""
+    import torch
+
+    from recgraph_tpu_torch.ops import cuda_pathwise, cuda_pathwise_rev, recombination_engine
+    from recgraph_tpu_torch.ops.encode import rev_device_graph
+
+    rg = reverse_of(g)
+    dgr = rev_device_graph(rg, "cuda")
+    Af = cuda_pathwise.fill_pathwise_cuda(x.dg, x.table, x.seq, c["semi"])
+    Ar = cuda_pathwise_rev.fill_pathwise_rev_cuda(dgr, x.table, x.seq, x.L, not c["semi"])
+    inputs = list(recombination_engine.split_inputs(Af, Ar, x.dg.paths_on))
+    del Af, Ar
+    if c["dead"]:
+        inputs[5] = torch.zeros_like(inputs[5])
+    B, Lp = x.seq.shape
+    if c["W"] is None:
+        bidx = torch.arange(B, device="cuda").repeat_interleave(Lp - 2)
+        cols = 1 + torch.arange(Lp - 2, device="cuda").repeat(B)
+    else:
+        p = torch.arange(c["W"], device="cuda")
+        bidx, cols = p % B, 1 + (p * 37) % (Lp - 2)
+    x.inputs, x.rec = tuple(inputs), c["rec"]
+    x.geom = recombination_engine._SplitGeometry(g, rg).tensors("cuda")
+    x.bidx, x.cols = bidx.to(torch.int32), cols.to(torch.int32)
 
 
 def check_case(spec, label, g, reads, c, timed=False):
@@ -320,17 +420,25 @@ def check_case(spec, label, g, reads, c, timed=False):
 
     from recgraph_tpu_torch.ops.encode import (
         encode_read_aux, encode_reads, group_table, path_device_graph, poa_device_graph,
+        rev_device_graph,
     )
     from recgraph_tpu_torch.scoring import ScoreMatrix
 
-    path = spec["graph"] == "path"
-    dg = (path_device_graph if path else poa_device_graph)(g, "cuda")
+    kind = spec["graph"]
+    if kind == "poa":
+        dg = poa_device_graph(g, "cuda")
+    elif kind == "rev":
+        dg = rev_device_graph(reverse_of(g), "cuda")
+    else:
+        dg = path_device_graph(g, "cuda")
     table = torch.as_tensor(ScoreMatrix.create(c["matrix"], 2, -4).table,
                             dtype=torch.int32).cuda()
     seq, L = encode_reads(reads, pad_to=c["pad_to"], device="cuda")
     bta = encode_read_aux([int(1 + 0.01 * len(s)) for s in reads], "cuda")
     x = SimpleNamespace(g=g, dg=dg, table=table, seq=seq, L=L, bta=bta, W=c["W"],
                         o=c["oe"][0], e=c["oe"][1], semi=c["semi"])
+    if kind == "split":
+        split_case(g, reads, c, x)
     args = spec["args"](x)
     got = spec["kern"](*args)
     got = got if isinstance(got, tuple) else (got,)
@@ -341,11 +449,20 @@ def check_case(spec, label, g, reads, c, timed=False):
     plain_ms = (time.perf_counter() - t0) * 1e3
     ref = ref if isinstance(ref, tuple) else (ref,)
     B, Lp = seq.shape
-    how = f"mode {5 if c['semi'] else 4}" if path else f"o={x.o}, e={x.e}"
+    if kind == "poa":
+        how = f"o={x.o}, e={x.e}"
+    elif kind == "path":
+        how = f"mode {5 if c['semi'] else 4}"
+    else:
+        how = f"mode {9 if c['semi'] else 8}"
+        if kind == "split":
+            how += f", R={c['rec'][0]} r={c['rec'][1]}" + (", no valid pair" if c["dead"] else "")
     err = compare(f"{spec['id']} {label} {c['matrix']} {how} W={x.W}", got, ref)
     note = spec["note"](x, got) if "note" in spec else ""
-    paths = f" P={dg.paths_number} Gd={group_table(dg)[0].shape[1]}" if path else \
+    paths = f" P={dg.paths_number} Gd={group_table(dg)[0].shape[1]}" if kind != "poa" else \
         f" Pm={dg.max_preds}"
+    if kind == "split":
+        paths += f" pairs={x.bidx.shape[0]}"
     log(f"{spec['id']} {spec['mod'].KERNEL} {label} ({c['matrix']}, {how}): B={B} n={dg.n} "
         f"Lp={Lp}{paths}{note} exact (max_abs_err {err})")
     if not timed:
@@ -375,7 +492,7 @@ def check_kernels(shapes, corpora, cases):
         if not ours:
             raise AssertionError(f"{spec['id']} {kernel} has no main-path launch")
         for k, ((B, n, Lp, W), P, launches) in enumerate(ours):
-            g, reads = corpora[(spec["graph"], n, P)]
+            g, reads = corpora[(corpus_kind(spec), n, P)]
             main = case("main path", W=W, pad_to=Lp)
             e_, timing = check_case(spec, f"main path x{launches}", g, reads[:B], main,
                                     timed=True)
@@ -385,7 +502,8 @@ def check_kernels(shapes, corpora, cases):
                 err = max(err, check_case(spec, "main path", g, reads[:B],
                                           dict(main, **spec["main_also"]))[0])
         for c in spec["cases"]:
-            err = max(err, check_case(spec, c["name"], *cases[(spec["graph"], c["name"])], c)[0])
+            err = max(err, check_case(spec, c["name"], *cases[(corpus_kind(spec), c["name"])],
+                                      c)[0])
         results[spec["id"]] = dict(spec=spec, err=err, timed=timed)
     return results
 
@@ -436,8 +554,8 @@ def cli_run(tag, mode, reads_fa, graph_gfa, out, expect, launches, shapes):
 
 def check_sample(tag, mode, lines, seqs, names, sample, graph_gfa, workdir, before=None):
     """The sampled reads' GAF lines equal the port's CPU run on them.
-    Modes 4/5 wrote no line for read 0 (``-o``): read i is line i - 1.
-    ``before`` runs just before the CPU run."""
+    Modes 4/5 and 8/9 wrote no line for read 0 (``-o``): read i is line
+    i - 1.  ``before`` runs just before the CPU run."""
     sample_fa = os.path.join(workdir, f"sample_{tag.replace(' ', '_')}.fa")
     write_fasta(sample_fa, [seqs[i] for i in sample], [names[i] for i in sample])
     t0 = time.perf_counter()
@@ -445,7 +563,7 @@ def check_sample(tag, mode, lines, seqs, names, sample, graph_gfa, workdir, befo
         before()
     ref = run_capture(sequence_path=sample_fa, graph_path=graph_gfa,
                       alignment_mode=mode, device="cpu").splitlines()
-    offset = 1 if mode in (4, 5) else 0
+    offset = 1 if mode in (4, 5, 8, 9) else 0
     got = [lines[i - offset] for i in sample]
     if got != ref:
         bad = next(k for k, (a, b) in enumerate(zip(got + [""], ref + [""])) if a != b)
@@ -467,9 +585,9 @@ def main() -> int:
     from recgraph_tpu_torch import _backend, metrics
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.ops import (
-        _kernels, cuda_pathwise, cuda_pathwise_win, cuda_poa_gap_global,
+        _kernels, cuda_pathwise, cuda_pathwise_rev, cuda_pathwise_win, cuda_poa_gap_global,
         cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win,
-        cuda_poa_local, pathwise_engine, poa_engine,
+        cuda_poa_local, cuda_split_summary, pathwise_engine, poa_engine,
     )
 
     # 1. report
@@ -496,6 +614,8 @@ def main() -> int:
     stretch = make_synth(workdir, "stretch", **STRETCH)
     many = make_synth(workdir, "many_paths", **MANY_PATHS)
     long = make_long(workdir)
+    short = (cuda_poa_global, cuda_poa_local, cuda_poa_gap_global, cuda_poa_gap_local)
+    rec = [cuda_pathwise.KERNEL, cuda_pathwise_rev.KERNEL, cuda_split_summary.KERNEL]
 
     # 3. goldens through the port's pipeline on the card
     metrics.reset_phases()
@@ -506,8 +626,7 @@ def main() -> int:
             if got != fh.read():
                 raise AssertionError(f"golden {name}: output differs")
         log(f"golden {name}: byte-equal")
-    short = (cuda_poa_global, cuda_poa_local, cuda_poa_gap_global, cuda_poa_gap_local)
-    if not all(metrics.LAUNCHES.get(m.KERNEL) for m in short + (cuda_pathwise,)):
+    if not all(metrics.LAUNCHES.get(k) for k in [m.KERNEL for m in short] + rec):
         raise AssertionError(f"goldens did not launch every kernel: {dict(metrics.LAUNCHES)}")
     log(f"golden launches: {dict(metrics.LAUNCHES)}")
 
@@ -524,35 +643,42 @@ def main() -> int:
         sample = sorted(set(range(head)) | set(range(head, len(seqs), step)))
         check_sample(f"stretch mode {mode}", mode, lines, seqs, names, sample, stretch[1],
                      workdir)
-    # modes 4/5: -o drops read 0's line, as the reference does
+    # modes 4/5 and 8/9: -o drops read 0's line, as the reference does
     with open(os.path.join(ROOT, "tests", "goldens", "stretch_mode4_sample.gaf")) as fh:
         golden4 = fh.read().splitlines()[1:]
-    for mode in (4, 5):
+    for mode in (4, 5, 8, 9):
         lines = cli_run(f"stretch mode {mode}", mode, stretch[0], stretch[1],
-                        os.path.join(workdir, f"stretch_mode{mode}.gaf"), [cuda_pathwise.KERNEL],
-                        launches, shapes)
+                        os.path.join(workdir, f"stretch_mode{mode}.gaf"),
+                        rec if mode > 5 else [cuda_pathwise.KERNEL], launches, shapes)
         if len(lines) != len(seqs) - 1:
             raise AssertionError(f"stretch mode {mode}: {len(lines)} lines != {len(seqs) - 1}")
         if mode == 4:
             if lines[: len(golden4)] != golden4:
                 raise AssertionError("stretch mode 4: lines differ from stretch_mode4_sample.gaf")
             log(f"stretch mode 4: lines 1-{len(golden4)} byte-equal to stretch_mode4_sample.gaf")
+        if mode > 5:
+            log(f"stretch mode {mode}: {sum('recombination path' in ln for ln in lines)} "
+                f"lines recombine; split search {dict(metrics.EVENTS)}")
         head, step = SAMPLE[mode]
         sample = sorted(set(range(1, head)) | set(range(head, len(seqs), step)))
         check_sample(f"stretch mode {mode}", mode, lines, seqs, names, sample, stretch[1],
                      workdir)
     mseqs, mnames = read_set(many[0])
-    lines = cli_run("many paths mode 4", 4, many[0], many[1],
-                    os.path.join(workdir, "many_paths_mode4.gaf"), [cuda_pathwise.KERNEL],
-                    launches, shapes)
-    paths = {k[5] for k in metrics.SHAPES if k[0] == cuda_pathwise.KERNEL}
-    if len(lines) != len(mseqs) - 1 or paths != {MANY_PATHS["n_paths"]}:
-        raise AssertionError(f"many paths: {len(lines)} lines, launched at P {paths}")
-    log(f"many paths mode 4: {cuda_pathwise.KERNEL} ran at P = {sorted(paths)}")
-    check_sample("many paths mode 4", 4, lines, mseqs, mnames,
-                 list(range(1, len(mseqs), MANY_PATHS["sample_step"])), many[1], workdir)
+    for mode, kern, step in ((4, [cuda_pathwise.KERNEL], MANY_PATHS["sample_step"]),
+                             (8, rec, MANY_PATHS["rec_sample_step"])):
+        lines = cli_run(f"many paths mode {mode}", mode, many[0], many[1],
+                        os.path.join(workdir, f"many_paths_mode{mode}.gaf"), kern, launches,
+                        shapes)
+        ran = {k[5] for k in metrics.SHAPES if k[0] in kern[:2]}
+        if len(lines) != len(mseqs) - 1 or ran != {MANY_PATHS["n_paths"]}:
+            raise AssertionError(f"many paths mode {mode}: {len(lines)} lines, launched at "
+                                 f"P {ran}")
+        log(f"many paths mode {mode}: {kern[:2]} ran at P = {sorted(ran)}")
+        check_sample(f"many paths mode {mode}", mode, lines, mseqs, mnames,
+                     list(range(1, len(mseqs), step)), many[1], workdir)
 
-    # 5. the long corpus: modes 0/2/4 through the ladder, 1/3/5 at full width
+    # 5. the long corpus: modes 0/2/4 through the ladder, 1/3/5 and 8/9
+    #    at full width
     lseqs, lnames = read_set(long[0])
     n_long = load_corpus(*long, 1)[0].n
     log(f"long corpus: {len(lseqs)} reads of {min(map(len, lseqs)) - 1}-"
@@ -585,6 +711,8 @@ def main() -> int:
                  before=pathwise_engine._pw_w_hint.clear)
     fw = os.path.join(workdir, "long_full_width.fa")
     write_fasta(fw, lseqs[: LONG["full_width_reads"]], lnames[: LONG["full_width_reads"]])
+    fw_rec = os.path.join(workdir, "long_rec.fa")
+    write_fasta(fw_rec, lseqs[: LONG["rec_reads"]], lnames[: LONG["rec_reads"]])
     for mode, mod in ((1, cuda_poa_local), (3, cuda_poa_gap_local)):
         lines = cli_run(f"long mode {mode}", mode, fw, long[1],
                         os.path.join(workdir, f"long_mode{mode}.gaf"), [mod.KERNEL], launches,
@@ -593,15 +721,18 @@ def main() -> int:
         if len(lines) != LONG["full_width_reads"] or min(widths) <= 1024:
             raise AssertionError(f"long mode {mode}: {len(lines)} lines, widths {widths}")
         log(f"long mode {mode}: {mod.KERNEL} ran at {sorted(widths)} columns")
-    lines = cli_run("long mode 5", 5, fw, long[1], os.path.join(workdir, "long_mode5.gaf"),
-                    [cuda_pathwise.KERNEL], launches, shapes)
-    widths = {k[4] for k in metrics.SHAPES if k[0] == cuda_pathwise.KERNEL}
-    if len(lines) != LONG["full_width_reads"] - 1 or min(widths) <= 1024:
-        raise AssertionError(f"long mode 5: {len(lines)} lines, widths {widths}")
-    log(f"long mode 5: {cuda_pathwise.KERNEL} ran at {sorted(widths)} columns")
-    check_sample("long mode 5", 5, lines, lseqs, lnames,
-                 list(range(1, LONG["full_width_reads"], LONG["mode5_sample_step"])), long[1],
-                 workdir)
+    for mode, reads, kern, n_reads, step in (
+            (5, fw, [cuda_pathwise.KERNEL], LONG["full_width_reads"], LONG["mode5_sample_step"]),
+            (8, fw_rec, rec, LONG["rec_reads"], LONG["rec_sample_step"]),
+            (9, fw_rec, rec, LONG["rec_reads"], LONG["rec_sample_step"])):
+        lines = cli_run(f"long mode {mode}", mode, reads, long[1],
+                        os.path.join(workdir, f"long_mode{mode}.gaf"), kern, launches, shapes)
+        widths = {k[4] for k in metrics.SHAPES if k[0] in kern[:2]}
+        if len(lines) != n_reads - 1 or min(widths) <= 1024:
+            raise AssertionError(f"long mode {mode}: {len(lines)} lines, widths {widths}")
+        log(f"long mode {mode}: {kern[:2]} ran at {sorted(widths)} columns")
+        check_sample(f"long mode {mode}", mode, lines, lseqs, lnames,
+                     list(range(1, n_reads, step)), long[1], workdir)
 
     # 6. kernels against their plain versions at the main path's shapes
     t0 = time.perf_counter()
@@ -627,8 +758,8 @@ def main() -> int:
     kernels = []
     for kid, r in kres.items():
         mod = r["spec"]["mod"]
-        # the kernel at its most launched shape; a view (K9a) is the same
-        # kernel at its shapes with that many paths
+        # the kernel at its most launched shape; a view (K9a, K9b) is the
+        # same kernel at its shapes with that many paths
         views = [(kid, mod.KERNEL, mod.REPLACES, r["timed"], launches.get(mod.KERNEL, 0))]
         for vid, P, replaces in r["spec"].get("views", []):
             timed = [t for t in r["timed"] if t["shape"][4] == P]

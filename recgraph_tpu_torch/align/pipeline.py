@@ -2,13 +2,14 @@
 
 Counterpart of ``recgraph_tpu/align/pipeline.py`` (``Options`` and
 ``_bta`` :37-66, ``_poa_align`` :69-90, ``_emit_records``/``_emit_poa``
-:115-174, ``run`` :202-225, the POA and pathwise branches of ``_run_host``
-:323-430 and ``_run_poa_batched`` :534-585) for modes 0-5.  Engines:
+:115-174, ``run`` :202-225, the POA, pathwise and recombination branches
+of ``_run_host`` :323-430, 472-508 and ``_run_poa_batched`` :534-585)
+for modes 0-5, 8 and 9.  Engines:
 
 - ``engine="torch"``  the port's fills and walks on ``Options.device``
   (CUDA kernels on ``"cuda"``, their plain versions on ``"cpu"``);
-- ``engine="oracle"`` the scalar spec, ``oracle.poa`` and
-  ``oracle.pathwise``.
+- ``engine="oracle"`` the scalar spec, ``oracle.poa``,
+  ``oracle.pathwise`` and ``oracle.recombination``.
 
 Reference behaviours kept at this layer: bta = b + f * len('$'+read)
 with a saturating cast (main.rs:57); gap penalties o = -gap_open and
@@ -17,9 +18,9 @@ retries (modes 0/2 on a negative score and modes 1/3 always, keeping
 the reverse only when strictly better — except mode 1, which keeps the
 *forward* record when its score is lower, a reference inversion,
 main.rs:160-164); 1-based read numbers for the GAF writer in modes 0-3
-and 0-based ones in modes 4/5 (main.rs:260,268), so that with ``-o`` the
-writer's truncate-at-number-1 rule drops read 0's pathwise line, as the
-reference does.  Modes 4/5 have no amb-strand retry.
+and 0-based ones in modes 4/5 and 8/9 (main.rs:260,268), so that with
+``-o`` the writer's truncate-at-number-1 rule drops read 0's line, as
+the reference does.  Modes 4/5 and 8/9 have no amb-strand retry.
 """
 
 from __future__ import annotations
@@ -39,18 +40,20 @@ from ..io.gaf import GafWriter
 from ..oracle import gaf_emit as oracle_gaf_emit
 from ..oracle import pathwise as oracle_pathwise
 from ..oracle import poa as oracle_poa
+from ..oracle import recombination as oracle_recombination
 from ..metrics import phase, phase_summary
-from ..ops import pathwise_engine, poa_engine
+from ..graph.pathgraph import nodes_displacement_matrix
+from ..ops import pathwise_engine, poa_engine, recombination_engine
 from ..ops.poa_engine import WalkState
 from ..scoring import ScoreMatrix
 
-PORTED_MODES = (0, 1, 2, 3, 4, 5)
+PORTED_MODES = (0, 1, 2, 3, 4, 5, 8, 9)
 ENGINES = ("torch", "oracle")
 _BAND_WARNING = "Band length probably too short, maybe try with larger b and f"
 
 
 def not_ported(mode: int) -> NotImplementedError:
-    item = {6: 14, 7: 14, 8: 13, 9: 13}.get(mode)
+    item = {6: 14, 7: 14}.get(mode)
     where = f"ROADMAP queue 1, item {item}" if item else "modes are 0..9"
     return NotImplementedError(f"mode {mode}: not yet ported ({where})")
 
@@ -158,7 +161,7 @@ def _emit_poa(mode, st, seq, name, amb_mode, g):
 
 
 def run(opts: Options) -> None:
-    """Top-level orchestration (reference main.rs:25-329), modes 0-5.
+    """Top-level orchestration (reference main.rs:25-329), modes 0-5, 8, 9.
 
     RECGRAPH_METRICS=1 prints reads/s, cells/s and the phase breakdown
     to stderr.  Diagnostics go to stderr so the GAF stream on stdout
@@ -175,6 +178,8 @@ def run(opts: Options) -> None:
     mode = opts.alignment_mode
     if mode in (4, 5):
         _run_pathwise(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer)
+    elif mode in (8, 9):
+        _run_recombination(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer)
     else:
         g = PoaGraph.from_gfa(parsed, amb_mode=False)
         g_rev = None
@@ -292,6 +297,27 @@ def _run_pathwise(opts, mode, sequences, names, g, sm, writer):
     else:
         exec_ = oracle_pathwise.exec_global if mode == 4 else oracle_pathwise.exec_semiglobal
         records = [exec_(s, g, sm) for s in sequences]
+    with phase("write"):
+        for i, rec in enumerate(records):
+            rec.query_name = names[i]
+            writer.write(rec.to_string(), i)
+
+
+def _run_recombination(opts, mode, sequences, names, g, sm, writer):
+    """Modes 8/9 (the recombination branch of recgraph_tpu's _run_host,
+    pipeline.py:472-508): the torch engine's fills, split search and
+    walks, or the scalar oracle per read, which alone needs the dense
+    displacement matrix; 0-based read numbers."""
+    rg = g.reverse()
+    args = (sm, opts.base_rec_cost, opts.multi_rec_cost)
+    if opts.engine == "torch":
+        records = recombination_engine.run_batch_walks(
+            mode, sequences, g, rg, *args, opts.rec_band_width, opts.device)
+    else:
+        dms = nodes_displacement_matrix(g, rg)
+        records = [oracle_recombination.exec_mode(mode, s, g, rg, *args, dms,
+                                                  opts.rec_band_width)
+                   for s in sequences]
     with phase("write"):
         for i, rec in enumerate(records):
             rec.query_name = names[i]

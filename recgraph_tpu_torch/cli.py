@@ -38,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="0: global POA, 1: local POA, 2: affine gap POA, 3: local gap POA, "
         "4: global pathwise, 5: semiglobal pathwise, 6/7: pathwise affine gap "
         "(EXPERIMENTAL), 8: global recombination, 9: semiglobal recombination "
-        "(this port runs modes 0-5)",
+        "(this port runs modes 0-5, 8 and 9)",
     )
     p.add_argument("-M", "--match", dest="match_score", type=int, default=2)
     p.add_argument("-X", "--mismatch", dest="mismatch_score", type=int, default=4)

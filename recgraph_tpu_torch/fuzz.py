@@ -1,10 +1,15 @@
 """Seeded random graphs and reads for kernel checks.
 
 A copy of ``random_gfa`` / ``random_read`` from
-``tests/test_fuzz_random_graphs.py:22,61``, kept in the package so
-``chip_smoke.py`` can draw the same graphs without importing the test
-module (which imports the JAX engines).  ``tests/test_torch_encode.py``
-pins the copy to the original.
+``tests/test_fuzz_random_graphs.py:22,61`` and of ``fragment_gfa`` /
+``_random_reads`` (here ``fragment_reads``) from
+``tests/test_rev_fill_leak_rows.py:29,91``, the fragment-path graphs
+whose reverse graphs have the reference's delta-leak rows, with
+``LEAK_SEEDS`` (:108), which cover every leak branch.  They are kept in
+the package so ``chip_smoke.py`` can draw the same graphs without
+importing the test modules (which import the JAX engines).
+``tests/test_torch_encode.py`` and ``tests/test_torch_rec_graph.py``
+pin the copies to the originals.
 """
 
 from __future__ import annotations
@@ -69,3 +74,63 @@ def random_read(rng: random.Random, gfa: Gfa) -> str:
     if len(out) < 3:
         out = list("ACG")
     return "$" + "".join(out)
+
+
+# seeds found by branch-coverage search; together they exercise all four
+# reverse-fill leak branches plus clean graphs
+LEAK_SEEDS = [1, 4, 18, 71, 2, 7, 23, 42, 55, 103]
+
+
+def fragment_gfa(seed: int) -> Gfa:
+    """Random DAG with a mix of full source->sink paths and 1-2 node
+    fragment paths (the shapes that produce leak rows)."""
+    r = random.Random(seed)
+    nn = r.randint(2, 8)
+    gfa = Gfa()
+    for nid in range(1, nn + 1):
+        gfa.segments[nid] = "".join(r.choice("ACGT") for _ in range(r.randint(1, 3)))
+    for nid in range(2, nn + 1):
+        for p in r.sample(range(1, nid), min(r.randint(1, 2), nid - 1)):
+            gfa.edges.append((p, nid))
+    preds = gfa.predecessors()
+    succs = gfa.successors()
+
+    def walk(start):
+        w = [start]
+        while preds.get(w[0]):
+            w.insert(0, r.choice(preds[w[0]]))
+        while succs.get(w[-1]):
+            w.append(r.choice(succs[w[-1]]))
+        return w
+
+    for k in range(r.randint(2, 4)):
+        if r.random() < 0.5:
+            gfa.paths.append(GfaPath(f"p{k}", walk(r.randint(1, nn))))
+        else:
+            s = r.randint(1, nn)
+            frag = [s]
+            if r.random() < 0.5 and succs.get(s):
+                frag.append(r.choice(succs[s]))
+            gfa.paths.append(GfaPath(f"p{k}", frag))
+    covered = {x for p in gfa.paths for x in p.nodes}
+    for nid in range(1, nn + 1):
+        if nid not in covered:
+            gfa.paths.append(GfaPath(f"c{nid}", walk(nid)))
+    return gfa
+
+
+def fragment_reads(r: random.Random, gfa: Gfa, k=2) -> list[str]:
+    """k reads along random paths with 15 % substitutions and 8 %
+    deletions (plus the '$' sentinel)."""
+    out = []
+    for _ in range(k):
+        path = r.choice(gfa.paths)
+        bases = []
+        for nid in path.nodes:
+            for c in gfa.segments[nid]:
+                if r.random() < 0.15:
+                    c = r.choice("ACGT")
+                if r.random() > 0.08:
+                    bases.append(c)
+        out.append("$" + ("".join(bases) or "A"))
+    return out

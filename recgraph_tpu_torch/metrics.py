@@ -9,7 +9,9 @@ can show that it went through the kernels, and to ``SHAPES[(name, B,
 n, Lp, W)]``, so that a run can hold each kernel to its plain version
 at the shapes the run gave it.  ``EVENTS`` counts what a run should
 show without it being a failure: the mode-4 long reads that the window
-ladder sends to the full-width fill (``pathwise_win_fullwidth``).
+ladder sends to the full-width fill (``pathwise_win_fullwidth``), and
+the rounds and (read, column) pairs of the modes-8/9 split search
+(``split_rounds``, ``split_pairs``), whose time is the ``split`` phase.
 """
 
 from __future__ import annotations

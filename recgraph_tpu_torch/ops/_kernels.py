@@ -33,6 +33,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
     # n_cand, B, n, Pm, Lp, m, bsp, score, last_row, last_col, packed,
@@ -60,6 +61,13 @@ _SIGNATURES = {
     # seq, L, table, codes, grep, gpred, pslot, rmin, B, n, P, Lp, Gd, W,
     # gw, kidx, flag, rowv, bsp, Aw, ws, bound, stream
     "rgt_pathwise_win_fill": [_P] * 8 + [_I] * 6 + [_P] * 8 + [_P],
+    # seq, L, table, codes, grep, gpred, pslot, qsrc, B, n, P, Lp, Gd,
+    # mode8, Gs, kidx, flag, A, stream
+    "rgt_pathwise_rev_fill": [_P] * 8 + [_I] * 6 + [_P] * 4 + [_P],
+    # fmax, farg, vf, rmax, rarg, vr, dfs, dfe, ids, fwe, rve, R, r,
+    # bidx, cols, K, I, Lp, edge0, col_max, edge_any, flat_edge,
+    # flat_plain, stream
+    "rgt_split_summary": [_P] * 11 + [_F] * 2 + [_P] * 2 + [_I] * 4 + [_P] * 4 + [_P],
 }
 
 _lib = None
@@ -186,12 +194,14 @@ def check_inputs(kernel, dg, table, seq, L, bta=None):
 
 
 def launch(kernel: str, shape: tuple, dev, *args) -> None:
-    """Call the C entry ``rgt_<kernel>_fill`` on ``dev``'s current stream,
-    raise on a launch error, and count the launch with its ``shape``
-    (reads, rows, Lp, stored width; the pathwise kernels add paths).
-    Tensor arguments pass as device pointers."""
+    """Call the C entry ``rgt_<kernel>_fill`` (the fills) or
+    ``rgt_<kernel>`` on ``dev``'s current stream, raise on a launch
+    error, and count the launch with its ``shape`` (reads, rows, Lp,
+    stored width; the pathwise kernels add paths).  Tensor arguments
+    pass as device pointers."""
     lib = load()
-    fn = getattr(lib, f"rgt_{kernel}_fill")
+    entry = f"rgt_{kernel}_fill"
+    fn = getattr(lib, entry if entry in _SIGNATURES else f"rgt_{kernel}")
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
         rc = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)

@@ -1,9 +1,9 @@
 """Host->device graph and read encodings.
 
 Counterpart of ``recgraph_tpu/ops/encode.py:25-131`` (``PoaDeviceGraph``,
-``_build_poa_device_graph``), ``:134-185`` (``PathDeviceGraph`` without
-the reverse fill's ``qsrc_of``) and ``:187-226`` (``encode_reads``,
-``encode_read_aux``).  Tensors live on an explicit device; the mesh
+``_build_poa_device_graph``), ``:134-185`` (``PathDeviceGraph``),
+``recombination_engine.py:57-78`` (``rev_device_graph``) and ``:187-226``
+(``encode_reads``, ``encode_read_aux``).  Tensors live on an explicit device; the mesh
 placement of ``encode.py:57-88`` belongs to the multi-GPU slice.
 """
 
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .. import scoring
-from ..graph.pathgraph import PathGraph, pathwise_meta
+from ..graph.pathgraph import PathGraph, pathwise_meta, pathwise_meta_rev
 from ..graph.poagraph import PoaGraph
 
 _TENSOR_FIELDS = (
@@ -121,10 +121,10 @@ def build_poa_device_graph(g: PoaGraph, device="cpu") -> PoaDeviceGraph:
     )
 
 
-def _per_device(g, device, build):
-    """``build(g, device)``, cached on the graph per device."""
+def _per_device(g, device, build, key="_torch_device_graphs"):
+    """``build(g, device)``, cached on the graph per device under ``key``."""
     dev = torch.device(device)
-    cache = g.__dict__.setdefault("_torch_device_graphs", {})
+    cache = g.__dict__.setdefault(key, {})
     dg = cache.get(str(dev))
     if dg is None:
         dg = cache[str(dev)] = build(g, dev)
@@ -142,13 +142,16 @@ _PATH_BOOL_FIELDS = ("node_start", "paths_on")
 
 @dataclass(frozen=True, eq=False)
 class PathDeviceGraph:
-    """Dense arrays for the pathwise fills (modes 4/5), as torch tensors.
+    """Dense arrays for the pathwise fills (modes 4/5, 8/9), as torch tensors.
 
     Counterpart of ``recgraph_tpu/ops/encode.py:134-185``.  ``rep_of`` /
     ``pred_of`` materialise the reference's alpha/delta group semantics
     (``graph.pathgraph.pathwise_meta``): at row i every path p moves in
     the direction chosen by its group representative ``rep_of[i, p]``,
-    reading from predecessor row ``pred_of[i, p]``.
+    reading from predecessor row ``pred_of[i, p]``.  The reverse graph
+    of modes 8/9 (``rev_device_graph``) holds successor rows in
+    ``pred_of`` and adds ``qsrc_of``: the plane a path reads its own
+    values from (``pathgraph.pathwise_meta_rev``), -1 for a constant 0.
     """
 
     codes: torch.Tensor       # int32[n]
@@ -159,6 +162,7 @@ class PathDeviceGraph:
     pred_of: torch.Tensor     # int32[n, P] (-1 off-path)
     n: int
     paths_number: int
+    qsrc_of: torch.Tensor | None = None  # int32[n, P], reverse graphs only
 
     @property
     def device(self) -> torch.device:
@@ -167,9 +171,12 @@ class PathDeviceGraph:
     @classmethod
     def from_numpy(cls, arrays: dict, device="cpu") -> "PathDeviceGraph":
         """Build from a dict of numpy arrays (the JAX graph's fields as
-        ``np.asarray``) plus its ``n`` and ``paths_number``."""
+        ``np.asarray``) plus its ``n`` and ``paths_number``; a
+        ``qsrc_of`` entry that is not None is carried across."""
         kw = {}
-        for f in _PATH_TENSOR_FIELDS:
+        for f in _PATH_TENSOR_FIELDS + ("qsrc_of",):
+            if arrays.get(f) is None:   # qsrc_of: reverse graphs only
+                continue
             a = np.asarray(arrays[f])
             a = a.astype(bool) if f in _PATH_BOOL_FIELDS else a.astype(np.int32)
             kw[f] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -196,6 +203,24 @@ def path_device_graph(g: PathGraph, device="cpu") -> PathDeviceGraph:
     return _per_device(g, device, build_path_device_graph)
 
 
+def build_rev_device_graph(rg: PathGraph, device="cpu") -> PathDeviceGraph:
+    """Port of ``_build_rev_device_graph`` (recombination_engine.py:
+    64-78): the reverse graph's arrays with ``pathwise_meta_rev``'s
+    successor rows and ``qsrc_of``."""
+    rep_of, pred_of, qsrc_of = pathwise_meta_rev(rg)
+    return PathDeviceGraph.from_numpy(
+        dict(codes=rg.codes, node_start=rg.node_start, paths_on=rg.paths_nodes,
+             alphas=rg.alphas, rep_of=rep_of, pred_of=pred_of, qsrc_of=qsrc_of,
+             n=rg.n, paths_number=rg.paths_number),
+        device,
+    )
+
+
+def rev_device_graph(rg: PathGraph, device="cpu") -> PathDeviceGraph:
+    """The reverse graph's device encoding, cached on it per device."""
+    return _per_device(rg, device, build_rev_device_graph, key="_torch_rev_device_graphs")
+
+
 def group_table(dg: PathDeviceGraph):
     """The groups of each row that the pathwise kernels solve once:
     the distinct (rep, pred) pairs over the row's on-path lanes, in
@@ -206,19 +231,25 @@ def group_table(dg: PathDeviceGraph):
     int32[n, Gd] with 0 there, pslot int32[n, P]: each on-path lane's
     group column, -1 off-path), on ``dg.device``; Gd is the most groups
     of any row 1..n-2 (at least 1).  Rows 0 and n-1 have no groups.
+
+    On a reverse graph, the lanes that ``pathwise_meta_rev`` marks as a
+    constant 0 (``qsrc_of`` -1: the ghost lanes of a ghost-alpha row,
+    left without rep and successor) get no group either, so the kernel
+    writes them 0.
     """
 
     def build():
         h = dg.host()
         rep, pred, on = h["rep_of"], h["pred_of"], h["paths_on"]
+        zero = h["qsrc_of"] < 0 if dg.qsrc_of is not None else np.zeros_like(on)
         n, P = dg.n, dg.paths_number
         pairs_of = [[] for _ in range(n)]
         pslot = np.full((n, P), -1, np.int32)
         for i in range(1, n - 1):
             slot: dict[tuple[int, int], int] = {}
-            for q in np.flatnonzero(on[i]):
+            for q in np.flatnonzero(on[i] & ~zero[i]):
                 t = (int(rep[i, q]), int(pred[i, q]))
-                if min(t) < 0:   # pathwise_meta covers every on-path lane
+                if min(t) < 0:   # the metadata covers every other on-path lane
                     raise ValueError(f"row {i}, path {q}: on the node but in no group")
                 if t not in slot:
                     slot[t] = len(pairs_of[i])

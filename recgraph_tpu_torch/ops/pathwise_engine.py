@@ -194,7 +194,7 @@ def _endings_semiglobal_dev(finalcol, on):
 
 
 def walk_pathwise(plane, seq, L, table, node_start, codes, pred_of_bp,
-                  ending_node, global_mode, max_steps, ws=None):
+                  ending_node, global_mode, max_steps, ws=None, start_j=None):
     """Batched traceback over dense best-path planes.
 
     plane: int32[B, n, W] absolute scores on the chosen path (W = Lp at
@@ -208,7 +208,9 @@ def walk_pathwise(plane, seq, L, table, node_start, codes, pred_of_bp,
 
     ws (optional, int32[B, n]): per-row window starts of windowed planes
     — column j of row i reads plane[b, i, j - ws[b, i]], NEG outside the
-    window.
+    window.  ``start_j`` (optional, int32[B]): the walk's first column,
+    L - 1 by default (the recombination forward walk starts at the split
+    column).
 
     Returns (dirs int32[B, max_steps + 8] with -1 past each walk, rows,
     steps int32[B], stop row int32[B]).
@@ -228,7 +230,7 @@ def walk_pathwise(plane, seq, L, table, node_start, codes, pred_of_bp,
         return torch.where((rel >= 0) & (rel < W), v, NEG)
 
     i = ending_node.long()
-    j = L.long() - 1
+    j = L.long() - 1 if start_j is None else start_j.long()
     k = torch.zeros(B, dtype=_I32, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     dirs = torch.full((B, max_steps + 8), -1, dtype=_I32, device=dev)
@@ -286,6 +288,17 @@ def _walk_meta(g):
     return meta
 
 
+def _cigar(d_f):
+    """build_cigar of the direction codes ``d_f`` in forward order."""
+    if not len(d_f):
+        return ""
+    cls = _CIG_CLASS[d_f]
+    bnd = np.flatnonzero(cls[1:] != cls[:-1])
+    starts = np.concatenate(([0], bnd + 1))
+    ends = np.concatenate((bnd + 1, [len(d_f)]))
+    return "".join(f"{e - s}{cls[s]}" for s, e in zip(starts, ends))
+
+
 def _record_from_walk(dirs, rows, n_steps, stop_i, g, bp, ending_node, score):
     """The GAF fields build_alignment would give for this walk
     (oracle/pathwise.py, vectorised, byte-identical output): (path,
@@ -294,15 +307,7 @@ def _record_from_walk(dirs, rows, n_steps, stop_i, g, bp, ending_node, score):
     # forward order = reversed walk
     d_f = np.asarray(dirs[:n_steps])[::-1]
     r_f = np.asarray(rows[:n_steps])[::-1]
-    # CIGAR: RLE over classes in forward order
-    if n_steps:
-        cls = _CIG_CLASS[d_f]
-        bnd = np.flatnonzero(cls[1:] != cls[:-1])
-        starts = np.concatenate(([0], bnd + 1))
-        ends = np.concatenate((bnd + 1, [n_steps]))
-        cigar_str = "".join(f"{e - s}{cls[s]}" for s, e in zip(starts, ends))
-    else:
-        cigar_str = ""
+    cigar_str = _cigar(d_f)
     on_node = (d_f == 1) | (d_f == 2) | (d_f == 4)
     sel = r_f[on_node]                                     # path order
     path_length = int(on_node.sum())
@@ -344,15 +349,20 @@ def _gaf_from_walk(dirs_b, rows_b, steps_b, stop_b, g, bp, node, score, s):
     )
 
 
-def _walk_and_fetch(planes, seq, L, table, dg, bp, node, global_mode, max_steps, ws=None):
+def _walk_and_fetch(planes, seq, L, table, dg, bp, node, global_mode, max_steps, ws=None,
+                    start_j=None):
     """One walk loop over a batch of best-path planes, fetched to the
     host: (dirs, rows int32[B, k] numpy, steps, stop rows)."""
     pred_of_bp = dg.pred_of.t()[bp.long()]                 # [B, n]
     with phase("walk"):
-        dirs, rows, steps, stop_i = walk_pathwise(
-            planes, seq, L, table, dg.node_start, dg.codes, pred_of_bp, node,
-            global_mode, max_steps, ws=ws,
-        )
+        walk = walk_pathwise(planes, seq, L, table, dg.node_start, dg.codes, pred_of_bp,
+                             node, global_mode, max_steps, ws=ws, start_j=start_j)
+    return fetch_walk(*walk, max_steps)
+
+
+def fetch_walk(dirs, rows, steps, stop_i, max_steps):
+    """A walk's outputs to the host, packed: (dirs, rows int32[B, k]
+    numpy, steps, stop rows)."""
     with phase("device_wait"):
         kmax = min(max_steps, (int(steps.max()) + 63) // 64 * 64)
     with phase("fetch"):

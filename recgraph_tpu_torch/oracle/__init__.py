@@ -1,7 +1,5 @@
-"""Scalar oracle for POA modes 0-3 (copy of part of recgraph_tpu/oracle/).
-
-Only the POA fills and their GAF emitters are copied; the pathwise and
-recombination oracles belong to later slices.
-"""
+"""Scalar oracles, copied from ``recgraph_tpu/oracle/``: the POA fills
+and their GAF emitters (modes 0-3), the pathwise DP (modes 4/5) and the
+recombination DP (modes 8/9)."""
 
 from . import gaf_emit, poa  # noqa: F401

@@ -108,8 +108,8 @@ def test_fuzz_copy_matches_tests(seed):
 
 def test_port_never_imports_jax(example_paths, tmp_path):
     """Importing every module of the port and running the CPU pipeline on
-    two example reads in modes 0-5 leaves neither jax nor recgraph_tpu
-    (or any of their submodules) in sys.modules."""
+    two example reads in modes 0-5, 8 and 9 leaves neither jax nor
+    recgraph_tpu (or any of their submodules) in sys.modules."""
     seqs, names = fasta.get_sequences(example_paths[0])
     reads = tmp_path / "two.fa"
     reads.write_text("".join(f">{n}\n{s[1:]}\n" for n, s in zip(names[:2], seqs[:2])))
@@ -121,7 +121,7 @@ def test_port_never_imports_jax(example_paths, tmp_path):
         "        importlib.import_module(m.name)\n"
         "from recgraph_tpu_torch.align.pipeline import Options, run\n"
         "assert 'recgraph_tpu_torch.ops.cuda_poa_gap_global_win' in sys.modules\n"
-        "for mode in range(6):\n"
+        "for mode in (0, 1, 2, 3, 4, 5, 8, 9):\n"
         "    buf = io.StringIO()\n"
         "    with contextlib.redirect_stdout(buf):\n"
         f"        run(Options({str(reads)!r}, {example_paths[1]!r}, alignment_mode=mode,\n"

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K7 and K10 against their plain torch versions, on
-the card (K7 also stands for the TPU's path-tiled K9a).
+"""The CUDA kernels K1-K8, K10 and S1 against their plain torch versions,
+on the card (K7 and K8 also stand for the TPU's path-tiled K9a and K9b).
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports
 no JAX and nothing of the JAX package, and uses no conftest fixture, so
@@ -8,7 +8,8 @@ it runs on the GPU machine with
     python -m pytest tests/test_torch_kernels.py -q --noconftest
 
 The tolerance is exact equality: every output is an int32 DP value,
-index or flag.
+index or flag, or S1's f32 column maximum, which rounds as the plain
+version's (and the XLA engine's) expression does.
 """
 
 import contextlib
@@ -27,11 +28,12 @@ from recgraph_tpu_torch.graph.poagraph import PoaGraph
 from recgraph_tpu_torch.io import fasta, gfa
 from recgraph_tpu_torch.ops import (
     cuda_pathwise, cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win,
-    cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win, cuda_poa_local,
-    pathwise_engine, pathwise_window, poa_engine, poa_gap_engine,
+    cuda_pathwise_rev, cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win,
+    cuda_poa_local, cuda_split_summary, pathwise_engine, pathwise_window, poa_engine,
+    poa_gap_engine, recombination_engine,
 )
 from recgraph_tpu_torch.ops.encode import (
-    encode_read_aux, encode_reads, path_device_graph, poa_device_graph,
+    encode_read_aux, encode_reads, path_device_graph, poa_device_graph, rev_device_graph,
 )
 from recgraph_tpu_torch.scoring import ScoreMatrix
 
@@ -300,3 +302,145 @@ def test_cuda_pipeline_matches_cpu_pathwise(cuda, tmp_path, mode):
             run(Options(str(reads), EXAMPLE[1], alignment_mode=mode, device=device))
         out[device] = buf.getvalue()
     assert out["cuda"] == out["cpu"] and len(out["cpu"].splitlines()) == 12
+
+
+def _rev_pair(g, reads, matrix, device, pad_to=None):
+    """(reverse device graph, table, seq, L) of one K8 case."""
+    dgr = rev_device_graph(g.reverse(), device)
+    table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table).to(device)
+    seq, L = encode_reads(reads, pad_to=pad_to, device=device)
+    return dgr, table, seq, L
+
+
+def _assert_rev_kernel(g, reads, matrix, device, what, pad_to=None):
+    dgr, table, seq, L = _rev_pair(g, reads, matrix, device, pad_to)
+    for mode8 in (True, False):
+        _assert_equal(cuda_pathwise_rev.fill_pathwise_rev_cuda(dgr, table, seq, L, mode8),
+                      recombination_engine.fill_pathwise_rev_plain(dgr, table, seq, L, mode8),
+                      (what, mode8))
+
+
+@pytest.mark.cuda
+def test_pathwise_rev_kernel_matches_plain_random(cuda):
+    """K8 on random DAGs (1-9 paths), both modes, both tables, with reads
+    up to 2,100 columns (three column tiles) and a one-base read."""
+    for seed in range(8):
+        rng = random.Random(700 + seed)
+        gf = fuzz.random_gfa(rng, n_nodes=6 + 4 * seed, n_paths=1 + seed, cover_all=True)
+        reads = [fuzz.random_read(rng, gf) for _ in range(5)] + ["$A", "$" + "ACGT" * 40]
+        if seed % 3 == 0:
+            reads.append("$" + "".join(rng.choice("ACGT") for _ in range(2100)))
+        _assert_rev_kernel(PathGraph.from_gfa(gf), reads, "HOXD70" if seed % 2 else "none",
+                           cuda, seed)
+
+
+@pytest.mark.cuda
+def test_pathwise_rev_kernel_matches_plain_leak_graphs(cuda):
+    """K8 on the fragment graphs whose reverse graphs have the
+    reference's delta-leak rows (clone rows and ghost-alpha rows with
+    constant-0 lanes), which the TPU kernel declined."""
+    for seed in fuzz.LEAK_SEEDS:
+        gf = fuzz.fragment_gfa(seed)
+        reads = fuzz.fragment_reads(random.Random(seed * 31 + 5), gf, k=4)
+        _assert_rev_kernel(PathGraph.from_gfa(gf), reads, "none", cuda, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus", ["example", "p126"])
+def test_pathwise_rev_kernel_matches_plain_corpora(cuda, tmp_path, corpus):
+    """K8 on the example graph (23 paths, up to 9 groups a row), with
+    HOXD70 too, and on a 126-path graph, where the JAX dispatch takes
+    K9b."""
+    if corpus == "example":
+        reads_fa, gfa_path = EXAMPLE
+    else:
+        from make_synthetic import make
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            make(str(tmp_path), n_back=80, n_reads=8, seed=7, n_paths=126)
+        reads_fa, gfa_path = str(tmp_path / "reads.fa"), str(tmp_path / "graph.gfa")
+    g = PathGraph.from_gfa(gfa.parse_gfa(gfa_path))
+    reads = fasta.get_sequences(reads_fa)[0][:8]
+    for matrix in ("none", "HOXD70") if corpus == "example" else ("none",):
+        _assert_rev_kernel(g, reads, matrix, cuda, (corpus, matrix), pad_to=256)
+
+
+@pytest.mark.cuda
+def test_split_summary_kernel_matches_plain(cuda):
+    """S1 against the plain column summary, bit for bit, on every
+    interior column of 6 example reads in modes 8 and 9: at the CLI's
+    costs (r = 0.1, where an FMA would round differently), with R = r = 0
+    (many ties) and on columns where no pair is valid."""
+    seqs, _ = fasta.get_sequences(EXAMPLE[0])
+    g = PathGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+    rg = g.reverse()
+    dg, dgr = path_device_graph(g, cuda), rev_device_graph(rg, cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(cuda)
+    seq, L = encode_reads(seqs[:6], device=cuda)
+    geom = recombination_engine._SplitGeometry(g, rg)
+    geom_t = geom.tensors(cuda)
+    B, Lp = seq.shape
+    bidx = torch.arange(B, dtype=torch.int32, device=cuda).repeat_interleave(Lp - 2)
+    cols = torch.arange(1, Lp - 1, dtype=torch.int32, device=cuda).repeat(B)
+    for mode in (8, 9):
+        Af = pathwise_engine.fill_pathwise_best(dg, table, seq, mode == 9)
+        Ar = recombination_engine.fill_pathwise_rev_best(dgr, table, seq, L, mode == 8)
+        inputs = recombination_engine.split_inputs(Af, Ar, dg.paths_on)
+        # a read whose reverse summaries are all off-path: no valid pair
+        dead = list(inputs)
+        dead[5] = torch.zeros_like(dead[5])
+        for R, r, ins in ((4, 0.1, inputs), (0, 0.0, inputs), (10, 2.0, inputs),
+                          (4, 0.1, tuple(dead))):
+            got = cuda_split_summary.col_summary_cuda(*ins, geom_t, R, r, bidx, cols)
+            ref = recombination_engine.col_summary_plain(*ins, geom_t, R, r, bidx, cols)
+            _assert_equal(got, ref, (mode, R, r))
+            assert bool((got[0] == recombination_engine.NEGF).all()) == (ins is not inputs)
+
+
+@pytest.mark.cuda
+def test_rec_dispatch_launches_kernels_and_counts(cuda):
+    seqs, _ = fasta.get_sequences(EXAMPLE[0])
+    g = PathGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+    rg = g.reverse()
+    dgr = rev_device_graph(rg, cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(cuda)
+    seq, L = encode_reads(seqs[:4], device=cuda)
+    B, Lp = seq.shape
+    metrics.reset_phases()
+    Ar = recombination_engine.fill_pathwise_rev_best(dgr, table, seq, L, True)
+    inputs = recombination_engine.split_inputs(Ar, Ar, dgr.paths_on)
+    geom_t = recombination_engine._SplitGeometry(g, rg).tensors(cuda)
+    pairs = torch.zeros(300, dtype=torch.int32, device=cuda)
+    got = recombination_engine.col_summary_best(inputs, geom_t, 4, 0.1, pairs, pairs + 5)
+    assert all(x.shape == (300,) for x in got)
+    K = recombination_engine.PAIRS_PER_LAUNCH
+    assert metrics.LAUNCHES == {cuda_pathwise_rev.KERNEL: 1, cuda_split_summary.KERNEL: 2}
+    assert metrics.SHAPES == {(cuda_pathwise_rev.KERNEL, B, g.n, Lp, Lp, g.paths_number): 1,
+                              (cuda_split_summary.KERNEL, B, g.n, Lp, K, g.paths_number): 2}
+    with pytest.raises(ValueError, match="int32"):
+        cuda_pathwise_rev.fill_pathwise_rev_cuda(dgr, table, seq.long(), L, True)
+    with pytest.raises(ValueError, match="reverse graph"):
+        cuda_pathwise_rev.fill_pathwise_rev_cuda(path_device_graph(g, cuda), table, seq, L,
+                                                 True)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_split_summary.col_summary_cuda(*inputs, geom_t, 4, 0.1, pairs.long(), pairs)
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_matches_cpu_recombination(cuda, tmp_path):
+    """Modes 8/9 through the whole pipeline on the card equal the CPU run
+    (which the CPU tests hold against the JAX pipeline and the goldens),
+    with the CLI's costs and with -R 10 -r 2 -B 0.5."""
+    seqs, names = fasta.get_sequences(EXAMPLE[0])
+    reads = tmp_path / "reads.fa"
+    reads.write_text("".join(f">{n}\n{s[1:]}\n" for n, s in zip(names[:12], seqs[:12])))
+    for cfg in (dict(alignment_mode=8), dict(alignment_mode=9),
+                dict(alignment_mode=8, base_rec_cost=10, multi_rec_cost=2.0,
+                     rec_band_width=0.5)):
+        out = {}
+        for device in ("cpu", "cuda"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+                run(Options(str(reads), EXAMPLE[1], device=device, **cfg))
+            out[device] = buf.getvalue()
+        assert out["cuda"] == out["cpu"] and len(out["cpu"].splitlines()) == 12, cfg

@@ -44,7 +44,7 @@ def _pair(name, example_paths):
 def _jax_device_numpy(g):
     dg = jax_encode._build_path_device_graph(g)
     out = {f: np.asarray(getattr(dg, f)) for f in DEVICE_FIELDS}
-    out.update(n=dg.n, paths_number=dg.paths_number)
+    out.update(n=dg.n, paths_number=dg.paths_number, qsrc_of=dg.qsrc_of)   # None: forward
     return dg, out
 
 

@@ -121,7 +121,7 @@ def test_oracle_engine(example_paths, tmp_path, mode):
 
 
 def test_unported_paths_raise(example_paths):
-    for mode in (6, 7, 9):
+    for mode in (6, 7):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             run(Options(*example_paths, alignment_mode=mode, device="cpu"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
