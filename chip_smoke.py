@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits nonzero:
             per source, all started together);
 3. goldens  the port's pipeline on example/ for mode0, mode1, mode1_hoxd70,
             mode2, mode3, mode4, mode5, mode8, mode9 and mode8_R10_r2_B05
-            (-R 10 -r 2 -B 0.5), byte-equal to tests/goldens/*.gaf;
+            (-R 10 -r 2 -B 0.5), byte-equal to tests/goldens/*.gaf, and
+            the stdout of modes 6 and 7, byte-equal to
+            tests/goldens/mode6_full.txt and mode7_full.txt;
 4. stretch  the CLI on the 10,000-read stretch corpus
             (tools/make_synthetic.make(dir, 700, 10000, 42)) for -m 0..5:
             line count (modes 4/5 drop read 0's line with -o, as the
@@ -19,16 +21,22 @@ Phases, in order; any failure raises and the script exits nonzero:
             the port's CPU run on the same reads, reads/s, the phase
             breakdown and peak memory; then -m 8 and -m 9 on the same
             corpus (K7, K8 and S1; the split search's rounds and pairs);
-            then -m 4 and -m 8 on 512 reads of the 128-path corpus
-            make(dir, 700, 512, 42, n_paths=128), the shape at which the
-            JAX package takes its path-tiled kernels;
+            then -m 6 and -m 7 (K11; the lines go to stdout whatever -o
+            says, two a read; a sample of 8 reads byte-equal to the CPU
+            run); then -m 4, -m 8 and -m 6 on 512 reads of the 128-path
+            corpus make(dir, 700, 512, 42, n_paths=128), the shape at
+            which the JAX package takes its path-tiled kernels (and the
+            most paths its modes-6/7 kernel takes);
 5. long     the CLI on 512 reads of the long corpus (the recipe of
             bench.py:78-110, written out below) for -m 0, -m 2 and -m 4:
             the windows the ladder ran (and, in mode 4, the reads rerun
             at full width), reads/s, phases, a sample byte-equal to the
             CPU run; then -m 1, -m 3 and -m 5 on 64 long reads at full
-            width, and -m 8 and -m 9 on 32 of them (full width);
-6. kernels  K1-K8, K10 and S1 against their plain torch versions on the card,
+            width, -m 8 and -m 9 on 32 of them and -m 6 and -m 7 on 8
+            (full width; read 0's two lines byte-equal to the scalar
+            oracle's, exec_gap_global / exec_gap_semiglobal, on a CPU
+            worker: the port's plain fill would take many minutes there);
+6. kernels  K1-K8, K10-K12 and S1 against their plain torch versions on the card,
             all outputs exactly equal, at every launch shape of phases 4-5
             (reads, rows, Lp, stored width[, paths], as metrics.SHAPES
             recorded them; the leading reads of that corpus), with kernel
@@ -40,25 +48,45 @@ Phases, in order; any failure raises and the script exits nonzero:
             engine's packed-chain gate, K8 on the fragment graphs whose
             reverse graphs have delta-leak rows (clone rows, ghost-alpha
             rows), and S1 (bitwise f32) with r = 0.1, with R = r = 0
-            (ties) and on columns with no valid pair;
+            (ties) and on columns with no valid pair; K11 (all three
+            planes, every cell) in modes 6 and 7 on the example graph, a
+            1,100-bp read (two column tiles; mode 6), HOXD70 with o = -200 (past
+            the TPU kernel's packed-chain gate), 130 paths (past its
+            P <= 128 gate) and (o, e) = (-3, -1); K11 is compared on the
+            card at its most launched shape, and at its other short-read
+            shapes on the leading 8 reads against the plain fill on a CPU
+            worker (each read is its own block); at the long reads'
+            launch shapes (three column tiles) read 0's planes in modes 6
+            and 7 against the scalar oracle (fill_fast) on a CPU worker;
+            K12 through its own wrapper on the staged inputs of
+            two hard rows of the graphs at K11's launch shapes;
 7. imports  no jax* and no recgraph_tpu* module was imported;
 8. result   the nvidia-smi line, one JSON line with every kernel (times
             and bound at the shape it was launched at most often; K9a and
             K9b, the TPU's path-tiled variants of K7 and K8, are their
-            kernels at the 128-path shapes), and the last line {"ok":
+            kernels at the 128-path shapes; K12's program runs inside
+            K11, so its launches are K11's), and the last line {"ok":
             true, "device": {...}}.
+
+From phase 4 on, the CPU runs that the card's output is held against
+(the samples, K11's CPU checks and the scalar oracle on a long read)
+are queued for three worker processes, which start after the last
+timed CLI run and work beside phase 6; phase 6 ends by collecting them.
 
 Every launch counter is set to 0 just before each CLI run of phases 4-5
 and read just after; the run fails if a kernel of its path was not
-launched.  The tolerance of every comparison is exact equality: all
-outputs are int32 DP values, indices and GAF bytes, and S1's f32 column
-maxima, which the kernel rounds as its plain version does.  Needs CUDA, nvcc
-(sm_90a) and a C++ compiler; exits nonzero without CUDA.
+launched (for modes 6/7 also unless K11 counted hard rows whose K12
+column program it ran: ``metrics.EVENTS["gap67_hard_rows"]``).  The
+tolerance of every comparison is exact equality: all outputs are int32
+DP values, indices and GAF bytes, and S1's f32 column maxima, which the
+kernel rounds as its plain version does.  Needs CUDA, nvcc (sm_90a) and
+a C++ compiler; exits nonzero without CUDA.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -72,7 +100,8 @@ STRETCH = dict(n_back=700, n_reads=10000, seed=42)
 MANY_PATHS = dict(n_back=700, n_reads=512, seed=42, n_paths=128, sample_step=97,
                   rec_sample_step=256)
 LONG = dict(n_back=1200, seed=11, n_reads=512, full_width_reads=64, sample_step=128,
-            pathwise_sample_step=128, mode5_sample_step=32, rec_reads=32, rec_sample_step=32)
+            pathwise_sample_step=128, mode5_sample_step=32, rec_reads=32, rec_sample_step=32,
+            gap_reads=8)
 GOLDENS = {
     "mode0": dict(alignment_mode=0),
     "mode1": dict(alignment_mode=1),
@@ -85,7 +114,12 @@ GOLDENS = {
     "mode9": dict(alignment_mode=9),
     "mode8_R10_r2_B05": dict(alignment_mode=8, base_rec_cost=10, multi_rec_cost=2.0,
                              rec_band_width=0.5),
+    "mode6_full": dict(alignment_mode=6),
+    "mode7_full": dict(alignment_mode=7),
 }
+# modes 6/7: reads of each corpus checked against the CPU run (the plain
+# fill runs its hard rows' columns one by one: seconds a read)
+GAP_SAMPLE = dict(stretch=8, many=2)
 # stretch sample checked against the CPU run: the first HEAD reads and
 # every STEP-th after them (fewer for the slower affine-gap, pathwise and
 # recombination CPU fills; modes 0-3 cut from 253 and 64 reads to keep
@@ -195,7 +229,9 @@ def load_corpus(reads_fa, graph_gfa, limit=None, graph=None):
     from recgraph_tpu_torch.io import gfa
 
     cls = graph or PoaGraph
-    return cls.from_gfa(gfa.parse_gfa(graph_gfa)), read_set(reads_fa, limit)[0]
+    g = cls.from_gfa(gfa.parse_gfa(graph_gfa))
+    g.__dict__["_smoke_gfa"] = graph_gfa   # for the CPU workers' jobs
+    return g, read_set(reads_fa, limit)[0]
 
 
 def kernel_cases(example, long, workdir):
@@ -204,17 +240,25 @@ def kernel_cases(example, long, workdir):
     corpus, 64 long reads and three random graphs; path graphs of the
     example corpus (23 paths, up to 9 groups a row), a 126-path graph,
     8 long reads, the same three random graphs and the fragment graphs
-    whose reverse graphs have delta-leak rows (``fuzz.LEAK_SEEDS``)."""
+    whose reverse graphs have delta-leak rows (``fuzz.LEAK_SEEDS``); for
+    K11 also a 60-node stretch graph with a 1,100-bp read (two column
+    tiles) and a 130-path graph."""
     from recgraph_tpu_torch import fuzz
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.graph.poagraph import PoaGraph
 
     p126 = make_synth(workdir, "p126", n_back=80, n_reads=8, seed=7, n_paths=126)
+    tile = make_synth(workdir, "tile", n_back=60, n_reads=2, seed=7, n_paths=6)
+    p130 = make_synth(workdir, "p130", n_back=30, n_reads=4, seed=3, n_paths=130)
+    tile_g, tile_reads = load_corpus(*tile, graph=PathGraph)
+    tile_reads.append("$" + "".join(random.Random(5).choice("ACGT") for _ in range(1100)))
     cases = {("poa", "example"): load_corpus(*example),
              ("poa", "long64"): load_corpus(*long, LONG["full_width_reads"]),
              ("path", "example"): load_corpus(*example, 16, graph=PathGraph),
              ("path", "p126"): load_corpus(*p126, graph=PathGraph),
-             ("path", "long8"): load_corpus(*long, 8, graph=PathGraph)}
+             ("path", "long8"): load_corpus(*long, 8, graph=PathGraph),
+             ("path", "tile"): (tile_g, tile_reads),
+             ("path", "p130"): load_corpus(*p130, graph=PathGraph)}
     for seed in (101, 202, 303):
         rng = random.Random(seed)
         gf = fuzz.random_gfa(rng, n_nodes=24, n_paths=4, cover_all=True)
@@ -229,13 +273,17 @@ def kernel_cases(example, long, workdir):
 
 
 def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None, rec=(4, 0.1),
-         dead=False):
+         dead=False, plain=True):
     """One exactness case: the named graph and reads, the scoring table,
-    the window width (S1: the pairs), the affine penalties, mode 5 or 9
-    (``semi``), the padded read width, and for S1 the recombination
-    costs (R, r) and whether no pair is valid (``dead``)."""
+    the window width (S1: the pairs; K12: -1 for the hard row with the
+    most blocks), the affine penalties, mode 5, 7 or 9 (``semi``), the
+    padded read width, for S1 the recombination costs (R, r) and
+    whether no pair is valid (``dead``), and where the reference runs:
+    the plain version on the card (True), the plain fill on a CPU worker
+    for the leading reads ("cpu"), or the scalar oracle on a CPU worker
+    for read 0 ("oracle")."""
     return dict(name=name, matrix=matrix, W=W, oe=oe, semi=semi, pad_to=pad_to, rec=rec,
-                dead=dead)
+                dead=dead, plain=plain)
 
 
 def corpus_kind(spec):
@@ -252,10 +300,11 @@ def kernel_specs():
     shapes stand for K9a, the TPU's path-tiled variant."""
     from recgraph_tpu_torch import fuzz
     from recgraph_tpu_torch.ops import (
-        cuda_pathwise, cuda_pathwise_rev, cuda_pathwise_win, cuda_poa_gap_global,
-        cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win,
-        cuda_poa_local, cuda_split_summary, pathwise_engine, pathwise_window, poa_engine,
-        poa_gap_engine, recombination_engine,
+        cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_rev,
+        cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local,
+        cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_split_summary,
+        pathwise_engine, pathwise_gap_engine, pathwise_window, poa_engine, poa_gap_engine,
+        recombination_engine,
     )
 
     def over(x, got):
@@ -271,6 +320,11 @@ def kernel_specs():
     win = [dict(c, W=32) for c in poa]   # W = 32: some reads overflow
     rand = [case(f"random{s}", semi=semi) for s in (101, 202, 303) for semi in (False, True)]
     leak = [case(f"leak{s}", semi=semi) for s in fuzz.LEAK_SEEDS for semi in (False, True)]
+    gap = [case("tile")] + [case(c, matrix=m, oe=oe, semi=semi) for semi in (False, True)
+                            for c, m, oe in (
+        ("example", "none", (O, E)), ("p130", "none", (O, E)),
+        ("example", "HOXD70", (-200, -2)), ("random101", "HOXD70", (-200, -2)),
+        ("random202", "none", (-3, -1)), ("example", "none", (-3, -1)))]
     return [
         dict(id="K1", mod=cuda_poa_global, kern=cuda_poa_global.fill_global_cuda,
              plain=poa_engine.fill_global_plain, graph="poa", ops=(24, 4),
@@ -318,6 +372,13 @@ def kernel_specs():
                            case("example", "HOXD70"),
                            case("example", "HOXD70", semi=True, pad_to=320),
                            case("p126", pad_to=256), case("p126", semi=True, pad_to=256)]),
+        dict(id="K11", mod=cuda_gap67_fill, kern=cuda_gap67_fill.fill_gap67_cuda,
+             plain=pathwise_gap_engine.fill_gap_plain, graph="gap", ops=(24, 0),
+             args=lambda x: (x.tabs, x.table, x.seq, x.o, x.e, x.semi),
+             oracle_past_lp=1024, cpu_plain=True, cases=gap),
+        dict(id="K12", mod=cuda_gap67_hardrow, kern=cuda_gap67_hardrow.hard_cols_cuda,
+             plain=pathwise_gap_engine.hard_cols_plain, graph="hard", ops=(40, 0),
+             args=lambda x: x.staged, shapes_of=cuda_gap67_fill.KERNEL, cases=[]),
         dict(id="S1", mod=cuda_split_summary,
              kern=cuda_split_summary.col_summary_cuda,
              plain=recombination_engine.col_summary_plain, graph="split", ops=(10, 0),
@@ -344,11 +405,24 @@ def bound(spec, x, got):
     stored cell (reads x rows x width x paths), a fixed count for the
     recurrence plus a count per predecessor, at this graph's mean
     predecessors per row; for S1 a fixed count per candidate pair that
-    has both sides on their paths (the pairs the kernel evaluates)."""
+    has both sides on their paths (the pairs the kernel evaluates).  K11
+    reads the reads, the table and the graph's fill tables and writes
+    the three planes; K12 reads its staged inputs and writes x and d,
+    with a fixed count per (column, lane, read)."""
     from recgraph_tpu_torch.ops.encode import group_table
 
     c0, c1 = spec["ops"]
-    if spec["graph"] == "split":
+    if spec["graph"] == "hard":
+        C, P, B = x.staged[3].shape
+        t_bytes = (nbytes(x.staged) + nbytes(got)) / HBM_BYTES_PER_S
+        t_ops = C * P * B * c0 / INT32_OPS_PER_S
+    elif spec["graph"] == "gap":
+        B, Lp = x.seq.shape
+        t = x.tabs
+        graph = nbytes((t.rows, t.lanemask, t.blocks, t.blockmask, t.lanes))
+        t_bytes = (nbytes(spec["args"](x)) + graph + nbytes(got)) / HBM_BYTES_PER_S
+        t_ops = B * t.meta.n * Lp * t.meta.P * c0 / INT32_OPS_PER_S
+    elif spec["graph"] == "split":
         K, (B, I, Lp) = x.bidx.shape[0], x.inputs[0].shape
         b, c = x.bidx.long(), x.cols.long()
         nvf = x.inputs[2][b, :, c].sum(1).double()
@@ -411,6 +485,27 @@ def split_case(g, reads, c, x):
     x.bidx, x.cols = bidx.to(torch.int32), cols.to(torch.int32)
 
 
+def hard_case(x, c):
+    """K12's inputs for case ``c``: K11 fills the reads on the card, then
+    the plain staging of one hard row (the row with the most blocks
+    when ``c["W"]`` is -1, else the first hard row): the column
+    program's arguments as ``hard_cols_plain`` takes them."""
+    from recgraph_tpu_torch.ops import cuda_gap67_fill, pathwise_gap_engine as pge
+
+    m = x.tabs.meta
+    hard = [i for i in range(1, m.n - 1) if not m.easy[i]]
+    i = hard[0] if c["W"] != -1 else max(hard, key=lambda r: (int(m.bvalid[r].sum()), r))
+    Dm, X, Y = cuda_gap67_fill.fill_gap67_cuda(x.tabs, x.table, x.seq, x.o, x.e, x.semi)
+    sub = x.table[int(m.codes[i])][x.seq.long()]
+    U, Dc, Dfd, Ypre, _ = pge.stage_hard_row(x.tabs, Dm, Y, i, sub, x.o, x.e)
+    (tb, nd, fire, isa, after), ai = pge.hard_row_scalars(x.tabs, i)
+    lc = x.tabs.lanes[i][:, :, None].expand(-1, -1, x.seq.shape[0]).contiguous()
+    x0 = X[i, :, :, 0].t().contiguous()
+    del Dm, X, Y
+    x.row, x.W = i, None
+    x.staged = (U, Dc, Dfd, Ypre, lc, x0, tb, nd, fire, isa, after, ai, x.o, x.e)
+
+
 def check_case(spec, label, g, reads, c, timed=False):
     """One kernel call against its plain version on the same inputs
     (case ``c``); returns (max_abs_err, timing or None)."""
@@ -423,6 +518,8 @@ def check_case(spec, label, g, reads, c, timed=False):
         rev_device_graph,
     )
     from recgraph_tpu_torch.scoring import ScoreMatrix
+
+    from recgraph_tpu_torch.ops.pathwise_gap_engine import gap_tables
 
     kind = spec["graph"]
     if kind == "poa":
@@ -439,39 +536,82 @@ def check_case(spec, label, g, reads, c, timed=False):
                         o=c["oe"][0], e=c["oe"][1], semi=c["semi"])
     if kind == "split":
         split_case(g, reads, c, x)
+    if kind in ("gap", "hard"):
+        x.tabs = gap_tables(g, "cuda")
+    if kind == "hard":
+        hard_case(x, c)
     args = spec["args"](x)
     got = spec["kern"](*args)
     got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = spec["plain"](*args)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    ref = ref if isinstance(ref, tuple) else (ref,)
     B, Lp = seq.shape
+    plain = c["plain"]
+    t0 = time.perf_counter()
+    ref = spec["plain"](*args) if plain is True else got
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 if plain is True else None
+    ref = ref if isinstance(ref, tuple) else (ref,)
     if kind == "poa":
         how = f"o={x.o}, e={x.e}"
     elif kind == "path":
         how = f"mode {5 if c['semi'] else 4}"
+    elif kind in ("gap", "hard"):
+        how = f"mode {7 if c['semi'] else 6}, o={x.o}, e={x.e}"
     else:
         how = f"mode {9 if c['semi'] else 8}"
         if kind == "split":
             how += f", R={c['rec'][0]} r={c['rec'][1]}" + (", no valid pair" if c["dead"] else "")
     err = compare(f"{spec['id']} {label} {c['matrix']} {how} W={x.W}", got, ref)
     note = spec["note"](x, got) if "note" in spec else ""
-    paths = f" P={dg.paths_number} Gd={group_table(dg)[0].shape[1]}" if kind != "poa" else \
-        f" Pm={dg.max_preds}"
+    if plain == "oracle":   # K11 at the long reads' shapes: read 0 against the scalar oracle
+        mode = 7 if x.semi else 6
+        digest = planes_digest([t[:, 0, :, : len(reads[0])] for t in got])
+
+        def check(res):
+            if res[0] != digest:
+                raise AssertionError(f"{spec['id']} {label} mode {mode}: read 0's planes differ "
+                                     "from the scalar oracle's")
+
+        defer(f"{spec['id']} {label} mode {mode} B={B} Lp={Lp}",
+              "read 0's planes equal to the scalar oracle's on every cell", check,
+              cpu_gap_oracle, g.__dict__["_smoke_gfa"], reads[0], mode)
+        note += " (read 0 goes to the scalar oracle on a CPU worker)"
+    elif plain == "cpu":   # K11: the leading reads against the plain fill on a CPU worker
+        k = min(B, K11_CPU_READS)
+        digest = planes_digest([t[:, :k] for t in got])
+
+        def check(ref_digest):
+            if ref_digest != digest:
+                raise AssertionError(f"{spec['id']} {label}: the leading {k} reads' planes "
+                                     "differ from the plain fill")
+
+        defer(f"{spec['id']} {label} B={B} Lp={Lp}",
+              f"leading {k} reads' planes equal to the plain fill on the CPU", check,
+              cpu_gap_fill_digest, g.__dict__["_smoke_gfa"], reads[:k], c["matrix"], x.o, x.e,
+              x.semi, Lp)
+        note += f" (the leading {k} reads go to the plain fill on a CPU worker)"
+    if kind == "poa":
+        paths = f" Pm={dg.max_preds}"
+    elif kind in ("gap", "hard"):
+        m = x.tabs.meta
+        paths = f" P={m.P} MB={m.maxb} hard rows={x.tabs.hard_rows}"
+        if kind == "hard":
+            paths += f" row={x.row} C={Lp - 1}"
+    else:
+        paths = f" P={dg.paths_number} Gd={group_table(dg)[0].shape[1]}"
     if kind == "split":
         paths += f" pairs={x.bidx.shape[0]}"
     log(f"{spec['id']} {spec['mod'].KERNEL} {label} ({c['matrix']}, {how}): B={B} n={dg.n} "
-        f"Lp={Lp}{paths}{note} exact (max_abs_err {err})")
+        f"Lp={Lp}{paths}{note} {'exact' if plain is True else 'launched'} "
+        f"(max_abs_err {err})")
     if not timed:
         return err, None
     bound_ms, bound_by = bound(spec, x, got)
     del got, ref
     ms = cuda_ms(lambda: spec["kern"](*args), 3)
+    plain_txt = "not measured" if plain_ms is None else f"{plain_ms:.3f} ms"
     log(f"{spec['id']} time at B={B} n={dg.n}{paths} Lp={Lp} W={x.W}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"plain {plain_txt}, bound {bound_ms:.4f} ms ({bound_by}), "
         f"{100 * bound_ms / ms:.2f} % of bound")
     return err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -486,21 +626,33 @@ def check_kernels(shapes, corpora, cases):
     results = {}
     for spec in kernel_specs():
         kernel, err, timed = spec["mod"].KERNEL, 0, []
+        of = spec.get("shapes_of", kernel)
         ours = sorted(((k[1:5], k[5] if len(k) > 5 else 1, v)
-                       for k, v in shapes.items() if k[0] == kernel),
+                       for k, v in shapes.items() if k[0] == of),
                       key=lambda t: (-t[2], -t[0][0] * t[0][3] * t[1]))
         if not ours:
             raise AssertionError(f"{spec['id']} {kernel} has no main-path launch")
         for k, ((B, n, Lp, W), P, launches) in enumerate(ours):
             g, reads = corpora[(corpus_kind(spec), n, P)]
-            main = case("main path", W=W, pad_to=Lp)
+            plain = True
+            if Lp > spec.get("oracle_past_lp", Lp):
+                plain = "oracle"
+            elif k and spec.get("cpu_plain"):
+                plain = "cpu"
+            main = case("main path", W=W, pad_to=Lp, plain=plain)
             e_, timing = check_case(spec, f"main path x{launches}", g, reads[:B], main,
                                     timed=True)
             err = max(err, e_)
             timed.append(dict(timing, shape=(B, n, Lp, W, P), launches=launches))
+            if plain == "oracle":   # the long reads ran in mode 7 too
+                err = max(err, check_case(spec, f"main path x{launches}", g, reads[:B],
+                                          dict(main, semi=True))[0])
             if k == 0 and "main_also" in spec:
                 err = max(err, check_case(spec, "main path", g, reads[:B],
                                           dict(main, **spec["main_also"]))[0])
+            if "shapes_of" in spec:   # K12 also on the row with the most blocks
+                err = max(err, check_case(spec, f"main path x{launches}", g, reads[:B],
+                                          dict(main, W=-1))[0])
         for c in spec["cases"]:
             err = max(err, check_case(spec, c["name"], *cases[(corpus_kind(spec), c["name"])],
                                       c)[0])
@@ -520,21 +672,27 @@ def run_capture(**kw):
 def cli_run(tag, mode, reads_fa, graph_gfa, out, expect, launches, shapes):
     """One CLI run on the card with the counters zeroed just before and
     read just after, added to ``launches`` and ``shapes``; fails unless
-    every kernel in ``expect`` launched."""
+    every kernel in ``expect`` launched.  Modes 6/7 print their lines
+    (two a read) to stdout whatever ``-o`` says, and K11 must have
+    counted hard rows whose K12 column program it ran."""
     import torch
 
     from recgraph_tpu_torch import cli, metrics
 
+    if os.path.exists(out):
+        os.remove(out)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics.reset_phases()
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(io.StringIO()):
+    with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(buf):
         cli.main(["-m", str(mode), reads_fa, graph_gfa, "-o", out, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = dict(metrics.LAUNCHES)
     got_shapes = dict(metrics.SHAPES)
+    events = dict(metrics.EVENTS)
     phases = metrics.phases_dict()
     peak = torch.cuda.max_memory_allocated() / 2**30
     for k in expect:
@@ -542,9 +700,19 @@ def cli_run(tag, mode, reads_fa, graph_gfa, out, expect, launches, shapes):
             raise AssertionError(f"{tag}: kernel {k} was not launched ({got})")
     launches.update(got)
     shapes.update(got_shapes)
-    with open(out) as fh:
-        lines = fh.read().splitlines()
-    log(f"{tag}: {len(lines)} reads in {wall:.3f} s = {len(lines) / wall:.1f} reads/s; "
+    if mode in (6, 7):
+        if os.path.exists(out):
+            raise AssertionError(f"{tag}: modes 6/7 wrote {out}; they print to stdout")
+        if not events.get("gap67_hard_rows"):
+            raise AssertionError(f"{tag}: no hard row ran K12's column program ({events})")
+        lines = buf.getvalue().splitlines()
+        n_out = len(lines) // 2
+        got["gap67_hard_rows (K12 programs)"] = events["gap67_hard_rows"]
+    else:
+        with open(out) as fh:
+            lines = fh.read().splitlines()
+        n_out = len(lines)
+    log(f"{tag}: {n_out} reads in {wall:.3f} s = {n_out / wall:.1f} reads/s; "
         f"launches {got}; peak device memory {peak:.2f} GiB")
     log(f"{tag} launch shapes (kernel, reads, rows, Lp, width): {got_shapes}")
     log(f"{tag} phases: " + json.dumps(
@@ -552,26 +720,189 @@ def cli_run(tag, mode, reads_fa, graph_gfa, out, expect, launches, shapes):
     return lines
 
 
-def check_sample(tag, mode, lines, seqs, names, sample, graph_gfa, workdir, before=None):
-    """The sampled reads' GAF lines equal the port's CPU run on them.
-    Modes 4/5 and 8/9 wrote no line for read 0 (``-o``): read i is line
-    i - 1.  ``before`` runs just before the CPU run."""
+# The CPU checks (the port's CPU run on sampled reads, K11's plain fill
+# at its other short-read launch shapes, and the scalar oracle on a long
+# read) run in worker processes while phase 6 works on the card: their
+# plain versions cost seconds to minutes a read on the CPU.  Jobs are
+# queued from phase 4 on and the workers start only after the last timed
+# CLI run, so that no timed run shares the host with them.
+CPU_WORKERS, CPU_THREADS = 3, 2
+K11_CPU_READS = 8   # leading reads of a chunk held against the CPU plain fill
+_pool = None
+_jobs: dict = {}       # (function, repr of its arguments) -> job
+_deferred: list = []   # (tag, job, check, what)
+
+
+def _cpu_worker_init():
+    import torch
+
+    torch.set_num_threads(CPU_THREADS)
+    sys.path.insert(0, ROOT)
+
+
+def start_cpu_workers():
+    """Start the workers and hand them every queued job, in queue order."""
+    global _pool
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    _pool = ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                                initializer=_cpu_worker_init)
+    for job in _jobs.values():
+        job.future = _pool.submit(job.fn, *job.args)
+
+
+def stop_cpu_workers():
+    if _pool is not None:
+        _pool.shutdown(wait=True, cancel_futures=True)
+
+
+def cpu_job(fn, *args):
+    """``fn(*args)`` on a CPU worker, once per distinct call: queued
+    until the workers start, submitted at once after that."""
+    from types import SimpleNamespace
+
+    key = (fn.__name__, repr(args))
+    if key not in _jobs:
+        _jobs[key] = SimpleNamespace(fn=fn, args=args, future=None)
+        if _pool is not None:
+            _jobs[key].future = _pool.submit(fn, *args)
+    return _jobs[key]
+
+
+def defer(tag, what, check, fn, *args):
+    """Run ``fn(*args)`` on a CPU worker; ``check(result)`` raises on a
+    mismatch when ``drain_cpu_checks`` collects it."""
+    _deferred.append((tag, cpu_job(fn, *args), check, what))
+
+
+def drain_cpu_checks():
+    for tag, job, check, what in _deferred:
+        res, secs = job.future.result()
+        check(res)
+        log(f"{tag}: {what} ({secs:.1f} s on a CPU worker)")
+    _deferred.clear()
+
+
+def cpu_run_lines(kw):
+    """The port's CLI on the CPU (a worker job): its output lines.  Every
+    window-width hint starts empty, as it did for the card's run."""
+    from recgraph_tpu_torch.ops import pathwise_engine, poa_engine
+
+    pathwise_engine._pw_w_hint.clear()
+    poa_engine._long_w_hint.clear()
+    t0 = time.perf_counter()
+    lines = run_capture(**kw).splitlines()
+    return lines, time.perf_counter() - t0
+
+
+def cpu_gap_results(mode, reads, graph_gfa):
+    """Modes 6/7 on the CPU in one fill chunk (a worker job): [(best
+    path, line)] per read."""
+    from recgraph_tpu_torch.graph.pathgraph import PathGraph
+    from recgraph_tpu_torch.io import gfa
+    from recgraph_tpu_torch.ops import pathwise_gap_engine
+    from recgraph_tpu_torch.scoring import ScoreMatrix
+
+    t0 = time.perf_counter()
+    g = PathGraph.from_gfa(gfa.parse_gfa(graph_gfa))
+    res = pathwise_gap_engine.run_batch(mode, reads, g, ScoreMatrix.create("none", 2, -4), O, E,
+                                        "cpu", chunk_bytes=1 << 40)
+    return res, time.perf_counter() - t0
+
+
+def planes_digest(planes):
+    """SHA-256 of int32 planes' bytes: equal digests are equal planes."""
+    h = hashlib.sha256()
+    for t in planes:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def cpu_gap_fill_digest(graph_gfa, reads, matrix, o, e, semi, pad_to):
+    """K11's plain fill on the CPU (a worker job): the digest of its
+    three planes."""
+    import torch
+
+    from recgraph_tpu_torch.graph.pathgraph import PathGraph
+    from recgraph_tpu_torch.io import gfa
+    from recgraph_tpu_torch.ops import pathwise_gap_engine
+    from recgraph_tpu_torch.ops.encode import encode_reads
+    from recgraph_tpu_torch.scoring import ScoreMatrix
+
+    t0 = time.perf_counter()
+    g = PathGraph.from_gfa(gfa.parse_gfa(graph_gfa))
+    table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table, dtype=torch.int32)
+    seq, _ = encode_reads(reads, pad_to=pad_to)
+    planes = pathwise_gap_engine.fill_gap_plain(pathwise_gap_engine.gap_tables(g, "cpu"), table,
+                                                seq, o, e, semi)
+    return planes_digest(planes), time.perf_counter() - t0
+
+
+def cpu_gap_oracle(graph_gfa, read, mode):
+    """The scalar oracle (``oracle.pathwise_gap.fill_fast``, cell for cell
+    the reference's fill) on one read in mode 6 or 7 (a worker job): the
+    digest of its dpm, x and y in K11's layout [n, P, len(read)], and
+    the read's two printed lines, the CIGAR line and the best path, as
+    ``exec_gap_global`` / ``exec_gap_semiglobal`` give them."""
+    import numpy as np
+    import torch
+
+    from recgraph_tpu_torch.graph.pathgraph import PathGraph
+    from recgraph_tpu_torch.io import gfa
+    from recgraph_tpu_torch.oracle import pathwise_gap as og
+    from recgraph_tpu_torch.scoring import ScoreMatrix
+
+    t0 = time.perf_counter()
+    g = PathGraph.from_gfa(gfa.parse_gfa(graph_gfa))
+    planes = og.fill_fast(read, g, ScoreMatrix.create("none", 2, -4), O, E, mode == 7)
+    if max(int(np.abs(p).max()) for p in planes) >= 2**31:
+        raise AssertionError("oracle planes past int32")
+    digest = planes_digest([torch.from_numpy(p.transpose(0, 2, 1).astype(np.int32))
+                            for p in planes])
+    if mode == 6:
+        bp = og.best_path_gap_global(planes[0], g)
+        cigar = og.build_alignment_gap(*planes, g, bp)
+    else:
+        node, bp = og.best_ending_node_gap_semi(planes[0], g)
+        cigar = og.build_alignment_semiglobal_gap(*planes, g, bp, node)
+    return (digest, [cigar, f"Best path sequence 0: {bp}"]), time.perf_counter() - t0
+
+
+def check_sample(tag, mode, lines, seqs, names, sample, graph_gfa, workdir):
+    """The sampled reads' GAF lines equal the port's CPU run on them
+    (deferred to a CPU worker).  Modes 4/5 and 8/9 wrote no line for
+    read 0 (``-o``): read i is line i - 1."""
     sample_fa = os.path.join(workdir, f"sample_{tag.replace(' ', '_')}.fa")
     write_fasta(sample_fa, [seqs[i] for i in sample], [names[i] for i in sample])
-    t0 = time.perf_counter()
-    if before is not None:
-        before()
-    ref = run_capture(sequence_path=sample_fa, graph_path=graph_gfa,
-                      alignment_mode=mode, device="cpu").splitlines()
     offset = 1 if mode in (4, 5, 8, 9) else 0
     got = [lines[i - offset] for i in sample]
-    if got != ref:
-        bad = next(k for k, (a, b) in enumerate(zip(got + [""], ref + [""])) if a != b)
-        raise AssertionError(f"{tag}: sample read {sample[bad]} differs from the CPU "
-                             f"run:\n{got[bad] if bad < len(got) else None}\n"
-                             f"{ref[bad] if bad < len(ref) else None}")
-    log(f"{tag}: {len(sample)}-read sample byte-equal to the CPU run "
-        f"({time.perf_counter() - t0:.1f} s)")
+
+    def check(ref):
+        if got != ref:
+            bad = next(k for k, (a, b) in enumerate(zip(got + [""], ref + [""])) if a != b)
+            raise AssertionError(f"{tag}: sample read {sample[bad]} differs from the CPU "
+                                 f"run:\n{got[bad] if bad < len(got) else None}\n"
+                                 f"{ref[bad] if bad < len(ref) else None}")
+
+    defer(tag, f"{len(sample)}-read sample byte-equal to the CPU run", check, cpu_run_lines,
+          dict(sequence_path=sample_fa, graph_path=graph_gfa, alignment_mode=mode, device="cpu"))
+
+
+def check_sample_gap(tag, mode, lines, seqs, sample, graph_gfa):
+    """Modes 6/7: the sampled reads' two lines each equal the port's CPU
+    run on them (deferred to a CPU worker; one fill chunk, the read
+    numbers the corpus's)."""
+    got = [lines[2 * i : 2 * i + 2] for i in sample]
+
+    def check(res):
+        for i, g_, (bp, cigar) in zip(sample, got, res):
+            if g_ != [cigar, f"Best path sequence {i}: {bp}"]:
+                raise AssertionError(f"{tag}: sample read {i} differs from the CPU run:\n"
+                                     f"{g_}\n{cigar} / {bp}")
+
+    defer(tag, f"{len(sample)}-read sample byte-equal to the CPU run", check, cpu_gap_results,
+          mode, [seqs[i] for i in sample], graph_gfa)
 
 
 def main() -> int:
@@ -585,9 +916,9 @@ def main() -> int:
     from recgraph_tpu_torch import _backend, metrics
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.ops import (
-        _kernels, cuda_pathwise, cuda_pathwise_rev, cuda_pathwise_win, cuda_poa_gap_global,
-        cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win,
-        cuda_poa_local, cuda_split_summary, pathwise_engine, poa_engine,
+        _kernels, cuda_gap67_fill, cuda_pathwise, cuda_pathwise_rev, cuda_pathwise_win,
+        cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global,
+        cuda_poa_global_win, cuda_poa_local, cuda_split_summary, pathwise_engine, poa_engine,
     )
 
     # 1. report
@@ -616,21 +947,28 @@ def main() -> int:
     long = make_long(workdir)
     short = (cuda_poa_global, cuda_poa_local, cuda_poa_gap_global, cuda_poa_gap_local)
     rec = [cuda_pathwise.KERNEL, cuda_pathwise_rev.KERNEL, cuda_split_summary.KERNEL]
+    gap = [cuda_gap67_fill.KERNEL]
 
     # 3. goldens through the port's pipeline on the card
     metrics.reset_phases()
     for name, cfg in GOLDENS.items():
         got = run_capture(sequence_path=example[0], graph_path=example[1],
                           device="cuda", **cfg)
-        with open(os.path.join(ROOT, "tests", "goldens", f"{name}.gaf")) as fh:
+        ext = "txt" if cfg["alignment_mode"] in (6, 7) else "gaf"
+        with open(os.path.join(ROOT, "tests", "goldens", f"{name}.{ext}")) as fh:
             if got != fh.read():
                 raise AssertionError(f"golden {name}: output differs")
         log(f"golden {name}: byte-equal")
-    if not all(metrics.LAUNCHES.get(k) for k in [m.KERNEL for m in short] + rec):
+    if not all(metrics.LAUNCHES.get(k) for k in [m.KERNEL for m in short] + rec + gap):
         raise AssertionError(f"goldens did not launch every kernel: {dict(metrics.LAUNCHES)}")
     log(f"golden launches: {dict(metrics.LAUNCHES)}")
 
-    # 4. stretch corpus end to end through the CLI
+    # 4. stretch corpus end to end through the CLI (the CPU checks from
+    #    here on are queued for worker processes that start with phase 6;
+    #    the longest, the scalar oracle on long read 0, goes first)
+    lseqs, lnames = read_set(long[0])
+    for mode in (6, 7):
+        cpu_job(cpu_gap_oracle, long[1], lseqs[0], mode)
     launches, shapes = Counter(), Counter()
     seqs, names = read_set(stretch[0])
     for mode, mod in enumerate(short):
@@ -663,7 +1001,23 @@ def main() -> int:
         sample = sorted(set(range(1, head)) | set(range(head, len(seqs), step)))
         check_sample(f"stretch mode {mode}", mode, lines, seqs, names, sample, stretch[1],
                      workdir)
+    for mode in (6, 7):
+        lines = cli_run(f"stretch mode {mode}", mode, stretch[0], stretch[1],
+                        os.path.join(workdir, f"stretch_mode{mode}.txt"), gap, launches, shapes)
+        if len(lines) != 2 * len(seqs):
+            raise AssertionError(f"stretch mode {mode}: {len(lines)} lines != {2 * len(seqs)}")
+        k = GAP_SAMPLE["stretch"]
+        check_sample_gap(f"stretch mode {mode}", mode, lines, seqs,
+                         [0] + list(range(len(seqs) // k, len(seqs), len(seqs) // k))[: k - 1],
+                         stretch[1])
     mseqs, mnames = read_set(many[0])
+    lines = cli_run("many paths mode 6", 6, many[0], many[1],
+                    os.path.join(workdir, "many_paths_mode6.txt"), gap, launches, shapes)
+    ran = {k[5] for k in metrics.SHAPES if k[0] == cuda_gap67_fill.KERNEL}
+    if len(lines) != 2 * len(mseqs) or ran != {MANY_PATHS["n_paths"]}:
+        raise AssertionError(f"many paths mode 6: {len(lines)} lines, launched at P {ran}")
+    check_sample_gap("many paths mode 6", 6, lines, mseqs,
+                     list(range(1, len(mseqs), len(mseqs) // GAP_SAMPLE["many"])), many[1])
     for mode, kern, step in ((4, [cuda_pathwise.KERNEL], MANY_PATHS["sample_step"]),
                              (8, rec, MANY_PATHS["rec_sample_step"])):
         lines = cli_run(f"many paths mode {mode}", mode, many[0], many[1],
@@ -679,7 +1033,6 @@ def main() -> int:
 
     # 5. the long corpus: modes 0/2/4 through the ladder, 1/3/5 and 8/9
     #    at full width
-    lseqs, lnames = read_set(long[0])
     n_long = load_corpus(*long, 1)[0].n
     log(f"long corpus: {len(lseqs)} reads of {min(map(len, lseqs)) - 1}-"
         f"{max(map(len, lseqs)) - 1} bp, n = {n_long}")
@@ -707,8 +1060,7 @@ def main() -> int:
         f"{sorted(pathwise_engine._pw_w_hint.values())}; pathwise_win_fullwidth reruns: "
         f"{reruns}")
     check_sample("long mode 4", 4, lines, lseqs, lnames,
-                 list(range(1, len(lseqs), LONG["pathwise_sample_step"])), long[1], workdir,
-                 before=pathwise_engine._pw_w_hint.clear)
+                 list(range(1, len(lseqs), LONG["pathwise_sample_step"])), long[1], workdir)
     fw = os.path.join(workdir, "long_full_width.fa")
     write_fasta(fw, lseqs[: LONG["full_width_reads"]], lnames[: LONG["full_width_reads"]])
     fw_rec = os.path.join(workdir, "long_rec.fa")
@@ -734,7 +1086,27 @@ def main() -> int:
         check_sample(f"long mode {mode}", mode, lines, lseqs, lnames,
                      list(range(1, n_reads, step)), long[1], workdir)
 
-    # 6. kernels against their plain versions at the main path's shapes
+    fw_gap = os.path.join(workdir, "long_gap.fa")
+    write_fasta(fw_gap, lseqs[: LONG["gap_reads"]], lnames[: LONG["gap_reads"]])
+    for mode in (6, 7):
+        lines = cli_run(f"long mode {mode}", mode, fw_gap, long[1],
+                        os.path.join(workdir, f"long_mode{mode}.txt"), gap, launches, shapes)
+        widths = {k[3] for k in metrics.SHAPES if k[0] == cuda_gap67_fill.KERNEL}
+        if len(lines) != 2 * LONG["gap_reads"] or min(widths) <= 1024:
+            raise AssertionError(f"long mode {mode}: {len(lines)} lines, widths {widths}")
+        log(f"long mode {mode}: {cuda_gap67_fill.KERNEL} ran at {sorted(widths)} columns")
+
+        def check(res, got=lines[:2], mode=mode):
+            if got != res[1]:
+                raise AssertionError(f"long mode {mode}: read 0 differs from the scalar oracle:"
+                                     f"\n{got}\n{res[1]}")
+
+        defer(f"long mode {mode}", "read 0's lines byte-equal to the scalar oracle's", check,
+              cpu_gap_oracle, long[1], lseqs[0], mode)
+
+    # 6. kernels against their plain versions at the main path's shapes,
+    #    with the CPU checks on the workers beside them
+    start_cpu_workers()
     t0 = time.perf_counter()
     corpora = {}
     for c in (stretch, long):
@@ -745,6 +1117,9 @@ def main() -> int:
         corpora[("path", g.n, g.paths_number)] = (g, reads)
     kres = check_kernels(shapes, corpora, kernel_cases(example, long, workdir))
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    drain_cpu_checks()
+    log(f"waited {time.perf_counter() - t0:.1f} s for the CPU checks")
 
     # 7. the whole run went through the port: no JAX, nothing of recgraph_tpu
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "recgraph_tpu"))
@@ -760,7 +1135,8 @@ def main() -> int:
         mod = r["spec"]["mod"]
         # the kernel at its most launched shape; a view (K9a, K9b) is the
         # same kernel at its shapes with that many paths
-        views = [(kid, mod.KERNEL, mod.REPLACES, r["timed"], launches.get(mod.KERNEL, 0))]
+        of = r["spec"].get("shapes_of", mod.KERNEL)   # K12 runs inside K11
+        views = [(kid, mod.KERNEL, mod.REPLACES, r["timed"], launches.get(of, 0))]
         for vid, P, replaces in r["spec"].get("views", []):
             timed = [t for t in r["timed"] if t["shape"][4] == P]
             views.append((vid, f"{mod.KERNEL} (P = {P})", replaces, timed,
@@ -781,4 +1157,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_cpu_workers()

@@ -12,16 +12,17 @@ Layer map (module names mirror the JAX package):
                 the host layer: copies of the JAX package's framework-free
                 modules of the same names, and the native GAF emitter and
                 FASTA reader (``csrc/host/``).
-- ``ops``       encode, the POA, pathwise and recombination fills and
-                the split search (plain torch + CUDA kernels), the
-                on-device traceback walks and the chunk pipelines.
+- ``ops``       encode, the POA, pathwise, pathwise affine-gap and
+                recombination fills and the split search (plain torch
+                + CUDA kernels), the on-device traceback walks and the
+                chunk pipelines.
 - ``align``     per-mode orchestration and GAF emission.
 - ``metrics``   phase timers and kernel launch counters.
 - ``cli``       the RecGraph-compatible command line.
 
 The port imports nothing of ``recgraph_tpu``; only its tests import both.
-Ported so far: POA modes 0-3 and pathwise modes 4/5 at every read
-length, and recombination modes 8/9.
+Ported: all ten modes (POA 0-3 and pathwise 4/5 at every read length,
+pathwise affine-gap 6/7, recombination 8/9) on one GPU.
 """
 
 __version__ = "0.1.0"

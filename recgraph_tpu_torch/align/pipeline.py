@@ -3,13 +3,14 @@
 Counterpart of ``recgraph_tpu/align/pipeline.py`` (``Options`` and
 ``_bta`` :37-66, ``_poa_align`` :69-90, ``_emit_records``/``_emit_poa``
 :115-174, ``run`` :202-225, the POA, pathwise and recombination branches
-of ``_run_host`` :323-430, 472-508 and ``_run_poa_batched`` :534-585)
-for modes 0-5, 8 and 9.  Engines:
+of ``_run_host`` :323-471, 472-508 and ``_run_poa_batched`` :534-585)
+for modes 0-9.  Engines:
 
 - ``engine="torch"``  the port's fills and walks on ``Options.device``
   (CUDA kernels on ``"cuda"``, their plain versions on ``"cpu"``);
 - ``engine="oracle"`` the scalar spec, ``oracle.poa``,
-  ``oracle.pathwise`` and ``oracle.recombination``.
+  ``oracle.pathwise``, ``oracle.pathwise_gap`` and
+  ``oracle.recombination``.
 
 Reference behaviours kept at this layer: bta = b + f * len('$'+read)
 with a saturating cast (main.rs:57); gap penalties o = -gap_open and
@@ -39,23 +40,24 @@ from ..io import fasta, gfa
 from ..io.gaf import GafWriter
 from ..oracle import gaf_emit as oracle_gaf_emit
 from ..oracle import pathwise as oracle_pathwise
+from ..oracle import pathwise_gap as oracle_pathwise_gap
 from ..oracle import poa as oracle_poa
 from ..oracle import recombination as oracle_recombination
 from ..metrics import phase, phase_summary
 from ..graph.pathgraph import nodes_displacement_matrix
-from ..ops import pathwise_engine, poa_engine, recombination_engine
+from ..ops import pathwise_engine, pathwise_gap_engine, poa_engine, recombination_engine
 from ..ops.poa_engine import WalkState
 from ..scoring import ScoreMatrix
 
-PORTED_MODES = (0, 1, 2, 3, 4, 5, 8, 9)
+PORTED_MODES = tuple(range(10))
 ENGINES = ("torch", "oracle")
 _BAND_WARNING = "Band length probably too short, maybe try with larger b and f"
 
 
-def not_ported(mode: int) -> NotImplementedError:
-    item = {6: 14, 7: 14}.get(mode)
-    where = f"ROADMAP queue 1, item {item}" if item else "modes are 0..9"
-    return NotImplementedError(f"mode {mode}: not yet ported ({where})")
+def not_ported(what: str) -> NotImplementedError:
+    """What the port does not run yet: multi-process runs (ROADMAP
+    queue 1, item 15)."""
+    return NotImplementedError(f"{what}: not yet ported (ROADMAP queue 1, item 15)")
 
 
 @dataclass
@@ -161,14 +163,14 @@ def _emit_poa(mode, st, seq, name, amb_mode, g):
 
 
 def run(opts: Options) -> None:
-    """Top-level orchestration (reference main.rs:25-329), modes 0-5, 8, 9.
+    """Top-level orchestration (reference main.rs:25-329), modes 0-9.
 
     RECGRAPH_METRICS=1 prints reads/s, cells/s and the phase breakdown
     to stderr.  Diagnostics go to stderr so the GAF stream on stdout
     stays clean.
     """
     if opts.alignment_mode not in PORTED_MODES:
-        raise not_ported(opts.alignment_mode)
+        raise ValueError(f"mode {opts.alignment_mode}: modes are 0..9")
     t0 = time.time()
     with phase("parse"):
         sequences, names = fasta.get_sequences(opts.sequence_path)
@@ -178,6 +180,8 @@ def run(opts: Options) -> None:
     mode = opts.alignment_mode
     if mode in (4, 5):
         _run_pathwise(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer)
+    elif mode in (6, 7):
+        _run_pathwise_gap(opts, mode, sequences, PathGraph.from_gfa(parsed, is_reversed=False), sm)
     elif mode in (8, 9):
         _run_recombination(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer)
     else:
@@ -322,3 +326,27 @@ def _run_recombination(opts, mode, sequences, names, g, sm, writer):
         for i, rec in enumerate(records):
             rec.query_name = names[i]
             writer.write(rec.to_string(), i)
+
+
+def _run_pathwise_gap(opts, mode, sequences, g, sm):
+    """Modes 6/7 (the branch of recgraph_tpu's _run_host,
+    pipeline.py:431-471): the torch engine's fills and walks, or the
+    scalar oracle per read.  Graphs the reference itself rejects (a
+    predecessor block sharing no path with its node) go to the oracle,
+    which raises the same way; nothing else does.  The lines go to
+    stdout whatever ``-o`` says (main.rs:277), read numbers 0-based."""
+    o, e = -opts.gap_open, -opts.gap_extension
+    results = None
+    if opts.engine == "torch":
+        try:
+            results = pathwise_gap_engine.run_batch(mode, sequences, g, sm, o, e, opts.device)
+        except pathwise_gap_engine.RejectedGraph as exc:
+            print(f"mode {mode}: device path unavailable ({exc}); using oracle", file=sys.stderr)
+    exec_ = (oracle_pathwise_gap.exec_gap_global if mode == 6
+             else oracle_pathwise_gap.exec_gap_semiglobal)
+    lines = []
+    for i, seq in enumerate(sequences):
+        best_path, cigar = results[i] if results is not None else exec_(seq, g, sm, o, e)
+        lines.append(f"{cigar}\nBest path sequence {i}: {best_path}\n")
+    with phase("write"):
+        sys.stdout.write("".join(lines))

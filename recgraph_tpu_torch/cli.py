@@ -7,15 +7,15 @@ Flag-compatible with the reference CLI (reference: src/args_parser.rs):
 with -m/-M/-X/-t/-O/-E/-r/-R/-B/-s/-b/-f/-o, plus ``--engine
 {torch,oracle}`` and ``--device {cuda,cpu}``.  The device defaults to
 ``cuda``; without CUDA the run raises rather than moving to the CPU.
-Modes 6-9 and multi-process runs raise NotImplementedError until their
-slices are ported.
+Multi-process runs raise NotImplementedError until their slice is
+ported.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .align.pipeline import Options, run
+from .align.pipeline import Options, not_ported, run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,8 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=0,
         help="0: global POA, 1: local POA, 2: affine gap POA, 3: local gap POA, "
         "4: global pathwise, 5: semiglobal pathwise, 6/7: pathwise affine gap "
-        "(EXPERIMENTAL), 8: global recombination, 9: semiglobal recombination "
-        "(this port runs modes 0-5, 8 and 9)",
+        "(EXPERIMENTAL), 8: global recombination, 9: semiglobal recombination",
     )
     p.add_argument("-M", "--match", dest="match_score", type=int, default=2)
     p.add_argument("-X", "--mismatch", dest="mismatch_score", type=int, default=4)
@@ -100,9 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     if args.num_processes > 1:
-        raise NotImplementedError(
-            "--num-processes > 1: not yet ported (ROADMAP queue 1, item 15)"
-        )
+        raise not_ported("--num-processes > 1")
     opts = Options(
         sequence_path=args.sequence_path,
         graph_path=args.graph_path,

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K8, K10 and S1 against their plain torch versions,
-on the card (K7 and K8 also stand for the TPU's path-tiled K9a and K9b).
+"""The CUDA kernels K1-K8, K10-K12 and S1 against their plain torch
+versions, on the card (K7 and K8 also stand for the TPU's path-tiled K9a
+and K9b).
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports
 no JAX and nothing of the JAX package, and uses no conftest fixture, so
@@ -27,10 +28,11 @@ from recgraph_tpu_torch.graph.pathgraph import PathGraph
 from recgraph_tpu_torch.graph.poagraph import PoaGraph
 from recgraph_tpu_torch.io import fasta, gfa
 from recgraph_tpu_torch.ops import (
-    cuda_pathwise, cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win,
-    cuda_pathwise_rev, cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win,
-    cuda_poa_local, cuda_split_summary, pathwise_engine, pathwise_window, poa_engine,
-    poa_gap_engine, recombination_engine,
+    cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_win,
+    cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_pathwise_rev, cuda_poa_gap_local,
+    cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_split_summary,
+    pathwise_engine, pathwise_gap_engine, pathwise_window, poa_engine, poa_gap_engine,
+    recombination_engine,
 )
 from recgraph_tpu_torch.ops.encode import (
     encode_read_aux, encode_reads, path_device_graph, poa_device_graph, rev_device_graph,
@@ -444,3 +446,75 @@ def test_cuda_pipeline_matches_cpu_recombination(cuda, tmp_path):
                 run(Options(str(reads), EXAMPLE[1], device=device, **cfg))
             out[device] = buf.getvalue()
         assert out["cuda"] == out["cpu"] and len(out["cpu"].splitlines()) == 12, cfg
+
+
+def _gap67_graph(name, tmp_path):
+    """(PathGraph, reads) of a modes-6/7 kernel case."""
+    if name == "example":
+        g = PathGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+        return g, fasta.get_sequences(EXAMPLE[0])[0][:6]
+    if name.startswith("random"):
+        rng = random.Random(int(name[6:]))
+        gf = fuzz.random_gfa(rng, n_nodes=16, n_paths=5, cover_all=True)
+        return PathGraph.from_gfa(gf), [fuzz.random_read(rng, gf) for _ in range(6)]
+    from make_synthetic import make
+
+    n_paths, n_back = {"p130": (130, 30), "tile": (6, 60)}[name]
+    with contextlib.redirect_stdout(io.StringIO()):
+        make(str(tmp_path), n_back=n_back, n_reads=2, seed=7, n_paths=n_paths)
+    g = PathGraph.from_gfa(gfa.parse_gfa(str(tmp_path / "graph.gfa")))
+    reads = fasta.get_sequences(str(tmp_path / "reads.fa"))[0]
+    if name == "tile":
+        reads.append("$" + "".join(random.Random(5).choice("ACGT") for _ in range(1100)))
+    return g, reads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,matrix,oe", [
+    ("example", "none", (-4, -2)), ("example", "HOXD70", (-200, -2)),
+    ("random31", "none", (-3, -1)), ("random32", "HOXD70", (-200, -2)),
+    ("p130", "none", (-4, -2)), ("tile", "none", (-4, -2)),
+])
+def test_gap67_fill_kernel_matches_plain(cuda, tmp_path, name, matrix, oe):
+    """K11 (with K12's column program in its hard rows) on every plane
+    cell, both modes: the example graph (up to 9 blocks a row), HOXD70
+    with o = -200 (past the TPU kernel's packed-chain gate), random
+    covered DAGs, 130 paths (past its P <= 128 gate) and a read of
+    1,100 bp (two column tiles)."""
+    g, reads = _gap67_graph(name, tmp_path)
+    table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table, dtype=torch.int32)
+    tabs_c = pathwise_gap_engine.gap_tables(g, cuda)
+    tabs_h = pathwise_gap_engine.gap_tables(g, "cpu")
+    seq, _ = encode_reads(reads)
+    for semi in (False, True):
+        got = cuda_gap67_fill.fill_gap67_cuda(tabs_c, table.to(cuda), seq.to(cuda), *oe, semi)
+        ref = pathwise_gap_engine.fill_gap_plain(tabs_h, table, seq, *oe, semi)
+        _assert_equal(tuple(t.cpu() for t in got), ref, (name, semi))
+
+
+@pytest.mark.cuda
+def test_gap67_hardrow_kernel_matches_plain(cuda):
+    """K12 through its own wrapper on the staged inputs of the example
+    graph's hard rows, and the launch counters of K11 and K12."""
+    g, reads = _gap67_graph("example", None)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table, dtype=torch.int32)
+    tabs = pathwise_gap_engine.gap_tables(g, "cpu")
+    seq, _ = encode_reads(reads)
+    Dm, X, Y = pathwise_gap_engine.fill_gap_plain(tabs, table, seq, -4, -2, False)
+    m = tabs.meta
+    metrics.reset_phases()
+    hard = [i for i in range(1, m.n - 1) if not m.easy[i]]
+    for i in hard:
+        sub = table[int(m.codes[i])][seq.long()]
+        U, Dc, Dfd, Ypre, _ = pathwise_gap_engine.stage_hard_row(tabs, Dm, Y, i, sub, -4, -2)
+        (tb, nd, fire, isa, after), ai = pathwise_gap_engine.hard_row_scalars(tabs, i)
+        lc = tabs.lanes[i][:, :, None].expand(-1, -1, seq.shape[0]).contiguous()
+        args = (U, Dc, Dfd, Ypre, lc, X[i, :, :, 0].t().contiguous(), tb, nd, fire, isa, after)
+        ref = pathwise_gap_engine.hard_cols_plain(*args, ai, -4, -2)
+        got = cuda_gap67_hardrow.hard_cols_cuda(*(t.to(cuda) for t in args), ai, -4, -2)
+        _assert_equal(tuple(t.cpu() for t in got), ref, i)
+    assert metrics.LAUNCHES[cuda_gap67_hardrow.KERNEL] == len(hard)
+    pathwise_gap_engine.fill_gap_device(g, ScoreMatrix.create("none", 2, -4), seq.to(cuda),
+                                        -4, -2, True)
+    assert metrics.LAUNCHES[cuda_gap67_fill.KERNEL] == 1
+    assert metrics.EVENTS["gap67_hard_rows"] == len(hard) * seq.shape[0]

@@ -121,13 +121,13 @@ def test_oracle_engine(example_paths, tmp_path, mode):
 
 
 def test_unported_paths_raise(example_paths):
-    for mode in (6, 7):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            run(Options(*example_paths, alignment_mode=mode, device="cpu"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["-m", str(mode), *example_paths, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="num-processes"):
+    # every mode is ported; multi-process runs are not
+    with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main([*example_paths, "--device", "cpu", "--num-processes", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
+        cli.main(["-m", "6", *example_paths, "--device", "cpu", "--num-processes", "2"])
+    with pytest.raises(ValueError, match="modes are 0..9"):
+        run(Options(*example_paths, alignment_mode=10, device="cpu"))
     with pytest.raises(ValueError, match="engine"):
         Options(*example_paths, engine="jax", device="cpu")
 
