@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits nonzero:
             mode2, mode3, mode4, mode5, mode8, mode9 and mode8_R10_r2_B05
             (-R 10 -r 2 -B 0.5), byte-equal to tests/goldens/*.gaf, and
             the stdout of modes 6 and 7, byte-equal to
-            tests/goldens/mode6_full.txt and mode7_full.txt;
+            tests/goldens/mode6_full.txt and mode7_full.txt; a reads
+            file with no reads in modes 0, 4, 6 and 8 (one per mode
+            family) writes no line, with and without -o;
 4. stretch  the CLI on the 10,000-read stretch corpus
             (tools/make_synthetic.make(dir, 700, 10000, 42)) for -m 0..5:
             line count (modes 4/5 drop read 0's line with -o, as the
@@ -36,7 +38,7 @@ Phases, in order; any failure raises and the script exits nonzero:
             (full width; read 0's two lines byte-equal to the scalar
             oracle's, exec_gap_global / exec_gap_semiglobal, on a CPU
             worker: the port's plain fill would take many minutes there);
-6. kernels  K1-K8, K10-K12 and S1 against their plain torch versions on the card,
+6. kernels  K1-K8, K10-K17 and S1 against their plain torch versions on the card,
             all outputs exactly equal, at every launch shape of phases 4-5
             (reads, rows, Lp, stored width[, paths], as metrics.SHAPES
             recorded them; the leading reads of that corpus), with kernel
@@ -59,9 +61,21 @@ Phases, in order; any failure raises and the script exits nonzero:
             launch shapes (three column tiles) read 0's planes in modes 6
             and 7 against the scalar oracle (fill_fast) on a CPU worker;
             K12 through its own wrapper on the staged inputs of
-            two hard rows of the graphs at K11's launch shapes;
-7. imports  no jax* and no recgraph_tpu* module was imported;
-8. result   the nvidia-smi line, one JSON line with every kernel (times
+            two hard rows of the graphs at K11's launch shapes; the
+            superseded TPU generations of the mode-0/1 fills, K13, K15,
+            K16 and K17 at K2's launch shapes and K14 at K1's (their
+            plain versions lay out the plain fill that K1's or K2's
+            check ran on the same inputs), on the example, random and
+            HOXD70 cases, K15 also at int16 on the example graph (and
+            refused at int16 at n = 2,249), and K16's walk
+            (walk_local_scores) equal to walk_poa's over K2's planes at
+            K2's most launched shape;
+7. kernel   python -m recgraph_tpu_torch.kernel_ab at 3,047 reads over
+   A/B      every ported variant (v1 v2 v3 v4 v5 plain g1 g2: K13-K17, K2,
+            the plain fill, K14, K1), each held to its plain version;
+            its launch counts are K13-K17's launches;
+8. imports  no jax* and no recgraph_tpu* module was imported;
+9. result   the nvidia-smi line, one JSON line with every kernel (times
             and bound at the shape it was launched at most often; K9a and
             K9b, the TPU's path-tiled variants of K7 and K8, are their
             kernels at the 128-path shapes; K12's program runs inside
@@ -129,6 +143,7 @@ SAMPLE = {0: (32, 313), 1: (32, 313), 2: (16, 625), 3: (16, 625), 4: (32, 313),
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12   # H100 SXM int32 issue rate (half the 67 TFLOP/s fp32 rate)
 O, E = -4, -2               # the CLI's default gap penalties
+AB_BATCH = 3047             # kernel A/B reads: K1's and K2's most launched stretch chunk
 
 
 def log(*a):
@@ -273,17 +288,51 @@ def kernel_cases(example, long, workdir):
 
 
 def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None, rec=(4, 0.1),
-         dead=False, plain=True):
+         dead=False, plain=True, dtype="int32", extra=False):
     """One exactness case: the named graph and reads, the scoring table,
     the window width (S1: the pairs; K12: -1 for the hard row with the
     most blocks), the affine penalties, mode 5, 7 or 9 (``semi``), the
     padded read width, for S1 the recombination costs (R, r) and
-    whether no pair is valid (``dead``), and where the reference runs:
-    the plain version on the card (True), the plain fill on a CPU worker
-    for the leading reads ("cpu"), or the scalar oracle on a CPU worker
-    for read 0 ("oracle")."""
+    whether no pair is valid (``dead``), where the reference runs: the
+    plain version on the card (True), the plain fill on a CPU worker for
+    the leading reads ("cpu"), or the scalar oracle on a CPU worker for
+    read 0 ("oracle"), K15's element type, and whether the spec's
+    ``extra`` check runs (the most launched main-path shape)."""
     return dict(name=name, matrix=matrix, W=W, oe=oe, semi=semi, pad_to=pad_to, rec=rec,
-                dead=dead, plain=plain)
+                dead=dead, plain=plain, dtype=dtype, extra=extra)
+
+
+# K1's and K2's plain fills on each input, shared with the plain versions
+# of K13-K17, which lay out the same fill: (fill, inputs' digest) ->
+# (outputs, ms).  Cleared after the last kernel that uses it.
+_plain_cache: dict = {}
+
+
+def shared_plain(fill, nargs, layout):
+    """The plain version of a kernel of the mode-0/1 family: ``fill`` (the
+    plain fill, on the kernel's first ``nargs`` arguments, run once per
+    input and cached) then ``layout`` (with the rest).  Returns a
+    function of the kernel's arguments that gives (outputs, ms of the
+    fill plus the layout)."""
+    import torch
+
+    def plain(*args):
+        h = hashlib.sha256()
+        for a in args[1:nargs]:
+            h.update(a.cpu().numpy().tobytes())
+        key = (fill.__name__, id(args[0]), h.hexdigest())
+        if key not in _plain_cache:
+            t0 = time.perf_counter()
+            out = fill(*args[:nargs])
+            torch.cuda.synchronize()
+            _plain_cache[key] = (out, (time.perf_counter() - t0) * 1e3)
+        out, fill_ms = _plain_cache[key]
+        t0 = time.perf_counter()
+        ref = layout(out, *args[nargs:])
+        torch.cuda.synchronize()
+        return ref, fill_ms + (time.perf_counter() - t0) * 1e3
+
+    return plain
 
 
 def corpus_kind(spec):
@@ -297,15 +346,42 @@ def kernel_specs():
     W, o, e, semi), its exactness cases besides its main-path shapes, and
     the int32 operations per stored cell and per predecessor.  K7 is
     also checked in mode 5 at its most launched shape, and its 128-path
-    shapes stand for K9a, the TPU's path-tiled variant."""
-    from recgraph_tpu_torch import fuzz
+    shapes stand for K9a, the TPU's path-tiled variant.  K13-K17 are
+    checked at K2's or K1's launch shapes (``shapes_of``), their plain
+    versions laid out from the plain fill K1's or K2's check ran
+    (``shared``); their launches are the kernel A/B phase's (``ab``)."""
+    import torch
+
+    from recgraph_tpu_torch import fuzz, kernel_ab
     from recgraph_tpu_torch.ops import (
         cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_rev,
         cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local,
-        cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_split_summary,
-        pathwise_engine, pathwise_gap_engine, pathwise_window, poa_engine, poa_gap_engine,
-        recombination_engine,
+        cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_poa_variants as cv,
+        cuda_split_summary, pathwise_engine, pathwise_gap_engine, pathwise_window, poa_engine,
+        poa_gap_engine, poa_variants as pv, recombination_engine, traceback_engine as tb,
     )
+
+    def int16_refused(x, got):
+        try:
+            cv.fill_local_v2_cuda(x.dg, x.table, x.seq, x.L, torch.int16)
+        except ValueError:
+            return f"; int16 refused at n = {x.dg.n}"
+        raise AssertionError(f"K15: int16 was not refused at n = {x.dg.n}")
+
+    def walk_equal(x, got):
+        """K16's walk over its score plane equals walk_poa's over K2's
+        packed planes for the same reads."""
+        packed = cuda_poa_local.fill_local_cuda(x.dg, x.table, x.seq, x.L)[3]
+        W = tb.max_walk_steps(x.dg.n, x.seq.shape[1])
+        t0 = time.perf_counter()
+        walk = tb.walk_local_scores(got[3], x.seq, x.table, x.dg.node_start, x.dg.codes,
+                                    x.dg.pred_idx, got[1], got[2], W)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not kernel_ab.walks_equal(walk, packed, got[1], got[2], W):
+            raise AssertionError("K16: walk_local_scores differs from walk_poa over K2's planes")
+        return (f"; walk_local_scores ({secs:.3f} s, {int(walk[2].sum())} steps) equal to "
+                "walk_poa's over K2's planes")
 
     def over(x, got):
         return f" W={x.W} over={int(got[-1].sum())}/{x.seq.shape[0]}"
@@ -317,6 +393,11 @@ def kernel_specs():
         return f" W={x.W} guard fails {int((score <= got[2]).sum())}/{x.seq.shape[0]}"
 
     poa = [case(c) for c in ("example", "random101", "random202", "random303")]
+    local = poa + [case("example", "HOXD70")]
+    loc_args = lambda x: (x.dg, x.table, x.seq, x.L)  # noqa: E731
+    glob_args = lambda x: (x.dg, x.table, x.seq, x.L, x.bta)  # noqa: E731
+    loc = lambda layout: shared_plain(poa_engine.fill_local_plain_planes, 4, layout)  # noqa: E731
+    glob = lambda layout: shared_plain(poa_engine.fill_global_plain, 5, layout)  # noqa: E731
     win = [dict(c, W=32) for c in poa]   # W = 32: some reads overflow
     rand = [case(f"random{s}", semi=semi) for s in (101, 202, 303) for semi in (False, True)]
     leak = [case(f"leak{s}", semi=semi) for s in fuzz.LEAK_SEEDS for semi in (False, True)]
@@ -327,12 +408,30 @@ def kernel_specs():
         ("random202", "none", (-3, -1)), ("example", "none", (-3, -1)))]
     return [
         dict(id="K1", mod=cuda_poa_global, kern=cuda_poa_global.fill_global_cuda,
-             plain=poa_engine.fill_global_plain, graph="poa", ops=(24, 4),
-             args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta), cases=poa + [case("long64")]),
+             plain=glob(lambda out: out), shared=True, graph="poa", ops=(24, 4),
+             args=glob_args, cases=poa + [case("long64")]),
         dict(id="K2", mod=cuda_poa_local, kern=cuda_poa_local.fill_local_cuda,
-             plain=poa_engine.fill_local_plain, graph="poa", ops=(20, 4),
-             args=lambda x: (x.dg, x.table, x.seq, x.L),
+             plain=loc(lambda out: out[:4]), shared=True, graph="poa", ops=(20, 4),
+             args=loc_args, cases=local),
+        dict(id="K13", mod=cv.LOCAL_V1, kern=cv.fill_local_v1_cuda,
+             plain=loc(pv.local_v1_layout), shared=True, ab=True, graph="poa", ops=(20, 4),
+             args=loc_args, shapes_of=cuda_poa_local.KERNEL, cases=local),
+        dict(id="K14", mod=cv.GLOBAL_V1, kern=cv.fill_global_v1_cuda,
+             plain=glob(pv.global_v1_layout), shared=True, ab=True, graph="poa", ops=(24, 4),
+             args=glob_args, shapes_of=cuda_poa_global.KERNEL,
              cases=poa + [case("example", "HOXD70")]),
+        dict(id="K15", mod=cv.LOCAL_V2, kern=cv.fill_local_v2_cuda,
+             plain=loc(pv.local_v2_layout), shared=True, ab=True, graph="poa", ops=(20, 4),
+             args=lambda x: (*loc_args(x), getattr(torch, x.dtype)),
+             shapes_of=cuda_poa_local.KERNEL, extra=int16_refused,
+             cases=local + [case("example", dtype="int16")]),
+        dict(id="K16", mod=cv.LOCAL_SCORES, kern=cv.fill_local_scores_cuda,
+             plain=loc(pv.local_scores_layout), shared=True, ab=True, graph="poa",
+             ops=(20, 4), args=loc_args, shapes_of=cuda_poa_local.KERNEL, extra=walk_equal,
+             cases=local),
+        dict(id="K17", mod=cv.LOCAL_V4, kern=cv.fill_local_v4_cuda,
+             plain=loc(pv.local_v4_layout), shared=True, ab=True, graph="poa", ops=(20, 4),
+             args=loc_args, shapes_of=cuda_poa_local.KERNEL, cases=local),
         dict(id="K3", mod=cuda_poa_global_win, kern=cuda_poa_global_win.fill_global_win_cuda,
              plain=poa_engine.fill_global_windowed_plain, graph="poa", ops=(26, 6),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.W), note=over, cases=win),
@@ -378,7 +477,8 @@ def kernel_specs():
              oracle_past_lp=1024, cpu_plain=True, cases=gap),
         dict(id="K12", mod=cuda_gap67_hardrow, kern=cuda_gap67_hardrow.hard_cols_cuda,
              plain=pathwise_gap_engine.hard_cols_plain, graph="hard", ops=(40, 0),
-             args=lambda x: x.staged, shapes_of=cuda_gap67_fill.KERNEL, cases=[]),
+             args=lambda x: x.staged, shapes_of=cuda_gap67_fill.KERNEL,
+             launches_of=cuda_gap67_fill.KERNEL, cases=[]),
         dict(id="S1", mod=cuda_split_summary,
              kern=cuda_split_summary.col_summary_cuda,
              plain=recombination_engine.col_summary_plain, graph="split", ops=(10, 0),
@@ -533,7 +633,7 @@ def check_case(spec, label, g, reads, c, timed=False):
     seq, L = encode_reads(reads, pad_to=c["pad_to"], device="cuda")
     bta = encode_read_aux([int(1 + 0.01 * len(s)) for s in reads], "cuda")
     x = SimpleNamespace(g=g, dg=dg, table=table, seq=seq, L=L, bta=bta, W=c["W"],
-                        o=c["oe"][0], e=c["oe"][1], semi=c["semi"])
+                        o=c["oe"][0], e=c["oe"][1], semi=c["semi"], dtype=c["dtype"])
     if kind == "split":
         split_case(g, reads, c, x)
     if kind in ("gap", "hard"):
@@ -550,9 +650,11 @@ def check_case(spec, label, g, reads, c, timed=False):
     ref = spec["plain"](*args) if plain is True else got
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3 if plain is True else None
+    if plain is True and spec.get("shared"):   # the cached plain fill's time and the layout's
+        ref, plain_ms = ref
     ref = ref if isinstance(ref, tuple) else (ref,)
     if kind == "poa":
-        how = f"o={x.o}, e={x.e}"
+        how = f"o={x.o}, e={x.e}" + (f", {x.dtype}" if x.dtype != "int32" else "")
     elif kind == "path":
         how = f"mode {5 if c['semi'] else 4}"
     elif kind in ("gap", "hard"):
@@ -563,6 +665,8 @@ def check_case(spec, label, g, reads, c, timed=False):
             how += f", R={c['rec'][0]} r={c['rec'][1]}" + (", no valid pair" if c["dead"] else "")
     err = compare(f"{spec['id']} {label} {c['matrix']} {how} W={x.W}", got, ref)
     note = spec["note"](x, got) if "note" in spec else ""
+    if c["extra"] and "extra" in spec:
+        note += spec["extra"](x, got)
     if plain == "oracle":   # K11 at the long reads' shapes: read 0 against the scalar oracle
         mode = 7 if x.semi else 6
         digest = planes_digest([t[:, 0, :, : len(reads[0])] for t in got])
@@ -625,6 +729,8 @@ def check_kernels(shapes, corpora, cases):
     shapes, the most launched first."""
     results = {}
     for spec in kernel_specs():
+        if not spec.get("shared"):
+            _plain_cache.clear()   # the mode-0/1 family is done
         kernel, err, timed = spec["mod"].KERNEL, 0, []
         of = spec.get("shapes_of", kernel)
         ours = sorted(((k[1:5], k[5] if len(k) > 5 else 1, v)
@@ -639,7 +745,7 @@ def check_kernels(shapes, corpora, cases):
                 plain = "oracle"
             elif k and spec.get("cpu_plain"):
                 plain = "cpu"
-            main = case("main path", W=W, pad_to=Lp, plain=plain)
+            main = case("main path", W=W, pad_to=Lp, plain=plain, extra=k == 0)
             e_, timing = check_case(spec, f"main path x{launches}", g, reads[:B], main,
                                     timed=True)
             err = max(err, e_)
@@ -650,7 +756,7 @@ def check_kernels(shapes, corpora, cases):
             if k == 0 and "main_also" in spec:
                 err = max(err, check_case(spec, "main path", g, reads[:B],
                                           dict(main, **spec["main_also"]))[0])
-            if "shapes_of" in spec:   # K12 also on the row with the most blocks
+            if spec["graph"] == "hard":   # K12 also on the row with the most blocks
                 err = max(err, check_case(spec, f"main path x{launches}", g, reads[:B],
                                           dict(main, W=-1))[0])
         for c in spec["cases"]:
@@ -913,7 +1019,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
-    from recgraph_tpu_torch import _backend, metrics
+    from recgraph_tpu_torch import _backend, kernel_ab, metrics
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.ops import (
         _kernels, cuda_gap67_fill, cuda_pathwise, cuda_pathwise_rev, cuda_pathwise_win,
@@ -962,6 +1068,20 @@ def main() -> int:
     if not all(metrics.LAUNCHES.get(k) for k in [m.KERNEL for m in short] + rec + gap):
         raise AssertionError(f"goldens did not launch every kernel: {dict(metrics.LAUNCHES)}")
     log(f"golden launches: {dict(metrics.LAUNCHES)}")
+    # a reads file with no reads: no line in any mode family, with or without -o
+    empty = os.path.join(workdir, "empty.fa")
+    open(empty, "w").close()
+    for mode in (0, 4, 6, 8):
+        out = os.path.join(workdir, f"empty_mode{mode}.gaf")
+        if os.path.exists(out):
+            os.remove(out)
+        got = run_capture(sequence_path=empty, graph_path=example[1], device="cuda",
+                          alignment_mode=mode)
+        got += run_capture(sequence_path=empty, graph_path=example[1], device="cuda",
+                           alignment_mode=mode, out_file=out)
+        if got or (os.path.exists(out) and os.path.getsize(out)):
+            raise AssertionError(f"mode {mode} wrote lines for a reads file with no reads")
+    log("no reads: modes 0, 4, 6 and 8 wrote no line, with and without -o")
 
     # 4. stretch corpus end to end through the CLI (the CPU checks from
     #    here on are queued for worker processes that start with phase 6;
@@ -1121,22 +1241,36 @@ def main() -> int:
     drain_cpu_checks()
     log(f"waited {time.perf_counter() - t0:.1f} s for the CPU checks")
 
-    # 7. the whole run went through the port: no JAX, nothing of recgraph_tpu
+    # 7. the kernel A/B entry point over every ported variant; its launches
+    #    are K13-K17's
+    t0 = time.perf_counter()
+    metrics.reset_phases()
+    ab = kernel_ab.run(AB_BATCH, list(kernel_ab.VARIANTS), "cuda")
+    ab_launches = dict(metrics.LAUNCHES)
+    bad = [name for name, r in ab.items() if not r["equal"]]
+    if bad:
+        raise AssertionError(f"kernel A/B: {bad} differ from their plain versions")
+    log(f"kernel A/B: {len(ab)} variants equal to their plain versions in "
+        f"{time.perf_counter() - t0:.1f} s; launches {ab_launches}")
+
+    # 8. the whole run went through the port: no JAX, nothing of recgraph_tpu
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "recgraph_tpu"))
     if bad:
         raise AssertionError(f"JAX or recgraph_tpu modules were imported: {bad[:8]}")
     log("imports: no jax, no recgraph_tpu module")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    # 8. result
+    # 9. result
     log(smi)
     kernels = []
     for kid, r in kres.items():
         mod = r["spec"]["mod"]
         # the kernel at its most launched shape; a view (K9a, K9b) is the
         # same kernel at its shapes with that many paths
-        of = r["spec"].get("shapes_of", mod.KERNEL)   # K12 runs inside K11
-        views = [(kid, mod.KERNEL, mod.REPLACES, r["timed"], launches.get(of, 0))]
+        of = r["spec"].get("launches_of", mod.KERNEL)   # K12 runs inside K11
+        # K13-K17 run on the kernel A/B path
+        n_launch = (ab_launches if r["spec"].get("ab") else launches).get(of, 0)
+        views = [(kid, mod.KERNEL, mod.REPLACES, r["timed"], n_launch)]
         for vid, P, replaces in r["spec"].get("views", []):
             timed = [t for t in r["timed"] if t["shape"][4] == P]
             views.append((vid, f"{mod.KERNEL} (P = {P})", replaces, timed,

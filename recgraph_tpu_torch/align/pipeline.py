@@ -178,7 +178,12 @@ def run(opts: Options) -> None:
     sm = ScoreMatrix.create(opts.matrix, opts.match_score, -opts.mismatch_score)
     writer = GafWriter(opts.out_file)
     mode = opts.alignment_mode
-    if mode in (4, 5):
+    if not sequences:
+        # zero reads: no line in any mode, as the reference's loop over the
+        # reads writes none; recgraph_tpu raises in modes 4-9
+        # (ops/pathwise_engine.py:223 _align_lp), which the port does not copy
+        pass
+    elif mode in (4, 5):
         _run_pathwise(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer)
     elif mode in (6, 7):
         _run_pathwise_gap(opts, mode, sequences, PathGraph.from_gfa(parsed, is_reversed=False), sm)

@@ -1,6 +1,6 @@
 // Mode-0 banded global POA fill (global_abpoa.rs:260-427) for Hopper,
-// full width (poa_global.cu, kWin = false) and windowed (poa_global_win.cu,
-// kWin = true).
+// full width (poa_global.cu, kWin = false), windowed (poa_global_win.cu,
+// kWin = true) and in the v1 TPU layout (poa_global_v1.cu, kV1 = true).
 //
 // Computes what poa_engine._fill_global (recgraph_tpu/ops/poa_engine.py:
 // 149-297) and _fill_global_windowed (:300-480) compute, bit for bit:
@@ -22,6 +22,13 @@
 // and best columns live in device-memory scratch the wrapper allocates,
 // so any predecessor span works without a gate.
 //
+// Layouts: K1 and K3 store packed [B, n, W] and lefts / rights [B, n].
+// With kV1 (K14, W = Lp) the kernel writes the v1 TPU layout itself:
+// packed [n, B, W + 8], with each row's band bounds in lanes W and
+// W + 1 (which the kernel also reads back as its band history), lanes
+// W + 2 .. W + 7 zero; lefts and rights are unused.  The layout is a
+// template flag, so K1's and K3's address arithmetic is what it was.
+//
 // What bounds it on this card: each row is a chain of dependent steps
 // separated by block barriers (scan, neighbour exchange, argmax, the
 // row's visibility to the next row), so one block is latency-bound on
@@ -38,8 +45,9 @@
 #include "poa_common.cuh"
 
 namespace rgt {
+namespace {  // internal linkage: each .cu that launches it has its own copy
 
-template <bool kWin>
+template <bool kWin, bool kV1 = false>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 poa_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
                   const int* __restrict__ bta_, const int* __restrict__ table,
@@ -66,9 +74,14 @@ poa_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
   const int bta = bta_[b];
   const int* sb = seq + (size_t)b * Lp;
   int* mb = m + (size_t)b * n * W;
-  int* pb = packed + (size_t)b * n * W;
-  int* lb = lefts + (size_t)b * n;
-  int* rb = rights + (size_t)b * n;
+  // kV1: rows of B * (W + 8) ints, read b at lane offset b * (W + 8)
+  const size_t row = kV1 ? (size_t)gridDim.x * (W + 8) : (size_t)W;
+  int* pb = packed + (kV1 ? (size_t)b * (W + 8) : (size_t)b * n * W);
+  int* lb_ = kV1 ? pb + W : lefts + (size_t)b * n;
+  int* rb_ = kV1 ? pb + W + 1 : rights + (size_t)b * n;
+  const size_t band_row = kV1 ? row : 1;
+  auto lb = [&](int r) -> int& { return kV1 ? lb_[r * band_row] : lb_[r]; };
+  auto rb = [&](int r) -> int& { return kV1 ? rb_[r * band_row] : rb_[r]; };
   int* bb = bsp + (size_t)b * n;
   int* wb = wss + (size_t)b * n;
   bool ovf = false;
@@ -102,7 +115,7 @@ poa_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
     const int l_fb = s_table[sb[min(left, Lp - 1)] * NCODE + GAP] * (i + left);
     int base0 = 0;
     if (i > 0 && left == 0) {
-      const int lm = min(max(lb[minp] - wb[minp], 0), W - 1);
+      const int lm = min(max(lb(minp) - wb[minp], 0), W - 1);
       base0 = mb[(size_t)minp * W + lm] + gnode;
     }
 
@@ -123,7 +136,7 @@ poa_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
         for (int q = 0; q < Pm; ++q) {
           const int p = pi[q];
           if (p < 0) continue;
-          const int lp = lb[p], rp = rb[p];
+          const int lp = lb(p), rp = rb(p);
           const int idx = j - wb[p];  // lane of column j in p's window
           const int* mp = mb + (size_t)p * W;
           if (lp <= j && j < rp && idx >= 0 && idx < W) {
@@ -188,14 +201,14 @@ poa_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
             psel = j > left ? i : minp;
           }
         }
-        pb[(size_t)i * W + k] = in_band ? psel * 16 + dcode : 0;
+        pb[i * row + k] = in_band ? psel * 16 + dcode : 0;
         mb[(size_t)i * W + k] = mrow;
       }
     }
     best = block_max_key(best, s_key);
     if (tid == 0) {
-      lb[i] = left;
-      rb[i] = right;
+      lb(i) = left;
+      rb(i) = right;
       wb[i] = ws;
       bb[i] = ws + (int)key_tie(best);
     }
@@ -203,17 +216,20 @@ poa_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
   }
 
   // row n-1 (the sink F) is never filled
-  for (int k = tid; k < W; k += blockDim.x) pb[(size_t)(n - 1) * W + k] = 0;
+  for (int k = tid; k < W; k += blockDim.x) pb[(n - 1) * row + k] = 0;
+  if (kV1)  // lanes W + 2 .. W + 7 of every row
+    for (int i = 0; i < n; ++i)
+      for (int k = W + 2 + tid; k < W + 8; k += blockDim.x) pb[i * row + k] = 0;
   if (tid == 0) {
-    lb[n - 1] = 0;
-    rb[n - 1] = 0;
+    lb(n - 1) = 0;
+    rb(n - 1) = 0;
     wb[n - 1] = 0;
     // best over F's predecessors, first strict max, row n-2 seeded;
     // rights >= 1, so right - 1 lies in the row
     int bv = 0, br = 0, bc = 0;
     for (int q = 0; q < n_cand; ++q) {
       const int c = cand[q];
-      const int col = rb[c] - 1;
+      const int col = rb(c) - 1;
       const int v = mb[(size_t)c * W + min(max(col - wb[c], 0), W - 1)];
       if (q == 0 || v > bv) { bv = v; br = c; bc = col; }
     }
@@ -224,4 +240,5 @@ poa_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
   }
 }
 
+}  // namespace
 }  // namespace rgt

@@ -5,9 +5,12 @@ listener (PyTorch runs eagerly; kernels build once, see
 ``ops/_kernels.py``).  ``device_wait`` is charged at the drain point,
 where the pipeline synchronises with the device.  Each kernel wrapper
 adds one to ``LAUNCHES[name]`` where it launches its kernel, so a run
-can show that it went through the kernels, and to ``SHAPES[(name, B,
-n, Lp, W)]``, so that a run can hold each kernel to its plain version
-at the shapes the run gave it.  ``EVENTS`` counts what a run should
+can show that it went through the kernels (the name is the wrapper
+module's ``KERNEL``; K13-K17 count as ``poa_local_v1``,
+``poa_global_v1``, ``poa_local_v2``, ``poa_local_scores`` and
+``poa_local_v4``), and to ``SHAPES[(name, B, n, Lp, W)]``, so that a
+run can hold each kernel to its plain version at the shapes the run
+gave it.  ``EVENTS`` counts what a run should
 show without it being a failure: the mode-4 long reads that the window
 ladder sends to the full-width fill (``pathwise_win_fullwidth``), and
 the rounds and (read, column) pairs of the modes-8/9 split search

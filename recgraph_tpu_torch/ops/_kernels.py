@@ -45,6 +45,18 @@ _SIGNATURES = {
     # seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp, m,
     # best_val, best_i, best_j, packed, stream
     "rgt_poa_local_fill": [_P] * 6 + [_I] * 4 + [_P] * 5 + [_P],
+    # K13, K17: seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp,
+    # n_store, m, best_val, best_i, best_j, packed, stream
+    "rgt_poa_local_v1_fill": [_P] * 6 + [_I] * 5 + [_P] * 5 + [_P],
+    "rgt_poa_local_v4_fill": [_P] * 6 + [_I] * 5 + [_P] * 5 + [_P],
+    # K15: ... Lp, n_store, i16, m, best_val, best_i, best_j, packed, stream
+    "rgt_poa_local_v2_fill": [_P] * 6 + [_I] * 6 + [_P] * 5 + [_P],
+    # K16: ... Lp, n_store, m, best_val, best_i, best_j, stream
+    "rgt_poa_local_scores_fill": [_P] * 6 + [_I] * 5 + [_P] * 4 + [_P],
+    # K14: seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
+    # n_cand, B, n, Pm, Lp, m, bsp, score, last_row, last_col, packed,
+    # wss, stream
+    "rgt_poa_global_v1_fill": [_P] * 9 + [_I] * 5 + [_P] * 7 + [_P],
     # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
     # n_cand, B, n, Pm, Lp, o, e, m, y, bsp, score, last_row, last_col,
     # packed, packed_x, packed_y, lefts, rights, wss, stream

@@ -1,0 +1,140 @@
+"""The superseded TPU generations of the mode-0/1 fills on the GPU.
+
+Wrappers of ``csrc/poa_local_variants.cu`` (K13, K15, K16, K17, through
+K2's kernel body) and ``csrc/poa_global_v1.cu`` (K14, through K1's).
+Each returns what its TPU kernel returns, in its layout and element
+type, written by the kernel itself:
+
+| Kernel | Replaces | Returns |
+| --- | --- | --- |
+| K13 ``fill_local_v1_cuda`` | ``pallas_poa.py:217 fill_local`` | (best_val, best_i, best_j, packed int32[n, B, Lp]) |
+| K14 ``fill_global_v1_cuda`` | ``pallas_poa.py:537 fill_global`` | (score, last_row, last_col_abs, packed int32[n, B, Lp + 8]); lanes Lp, Lp + 1: band bounds |
+| K15 ``fill_local_v2_cuda`` | ``pallas_poa_v2.py:182 fill_local_v2`` | (best_val, best_i, best_j, packed int32 or int16 [8 * ceil(n / 8), B, Lp]) |
+| K16 ``fill_local_scores_cuda`` | ``tools/pallas_poa_v3.py:137 fill_local_scores`` | (best_val, best_i, best_j, m int32[8 * ceil((n - 1) / 8), B, Lp]) |
+| K17 ``fill_local_v4_cuda`` | ``tools/pallas_poa_v4.py:218 fill_local_v4`` | (best_val, best_i, best_j, packed int32[8 * ceil((n - 1) / 8), B, Lp]) |
+
+Rows past n-2 are zero.  Their plain versions are in ``poa_variants``.
+The TPU kernels' gates and knobs are not ported: any predecessor span
+(no ``RING``), any batch (no ``B % Bt``), and ``R`` only as it sets the
+row padding.  ``metrics.LAUNCHES[<KERNEL>]`` counts each one's launches.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import _kernels
+
+R = 8   # rows per TPU grid step: only the row padding of K15-K17 keeps it
+
+
+class Kernel(NamedTuple):
+    KERNEL: str     # launch counter and C entry name (rgt_<KERNEL>_fill)
+    SOURCE: str
+    REPLACES: str
+
+
+_LOCAL_SRC = "recgraph_tpu_torch/csrc/poa_local_variants.cu"
+LOCAL_V1 = Kernel("poa_local_v1", _LOCAL_SRC, "recgraph_tpu/ops/pallas_poa.py:217")
+GLOBAL_V1 = Kernel("poa_global_v1", "recgraph_tpu_torch/csrc/poa_global_v1.cu",
+                   "recgraph_tpu/ops/pallas_poa.py:537")
+LOCAL_V2 = Kernel("poa_local_v2", _LOCAL_SRC, "recgraph_tpu/ops/pallas_poa_v2.py:182")
+LOCAL_SCORES = Kernel("poa_local_scores", _LOCAL_SRC, "tools/pallas_poa_v3.py:137")
+LOCAL_V4 = Kernel("poa_local_v4", _LOCAL_SRC, "tools/pallas_poa_v4.py:218")
+
+I16_MAX_ROWS = 2048      # pred * 16 + dir fits int16 below this many rows
+I16_MAX_SCORE = 1 << 14  # |scores| the int16 TPU kernel keeps exact
+
+
+def rows_v2(n: int) -> int:
+    """K15's stored rows: R * ceil(n / R) (pallas_poa_v2.py:206-208)."""
+    return -(-n // R) * R
+
+
+def rows_v34(n: int) -> int:
+    """K16's and K17's stored rows: R * ceil((n - 1) / R)."""
+    return -(-(n - 1) // R) * R
+
+
+def check_dtype(dtype, n: int, table, Lp: int) -> None:
+    """K15's element type is int32 or int16.  Raise where int16 planes
+    would not hold the values: n >= 2,048 rows, or the table's largest
+    entry times Lp at 16k or more (pallas_poa_v2.py:32-33, 187-190)."""
+    if dtype not in (torch.int32, torch.int16):
+        raise ValueError(f"fill_local_v2: dtype must be int32 or int16, got {dtype}")
+    top = int(table.abs().max())
+    if dtype == torch.int16 and (n >= I16_MAX_ROWS or top * Lp >= I16_MAX_SCORE):
+        raise ValueError(f"fill_local_v2: int16 planes need n < {I16_MAX_ROWS} and "
+                         f"max |table| * Lp < {I16_MAX_SCORE}; got n = {n}, "
+                         f"{top} * {Lp} = {top * Lp}")
+
+
+def _local(k: Kernel, dg, table, seq, L, n_store, plane_dtype=torch.int32,
+           scores_only=False, flags=()):
+    """Launch one local variant: (best_val, best_i, best_j, plane
+    [n_store, B, Lp]); ``flags`` are K15's int16 switch."""
+    dev = seq.device
+    B, Lp = seq.shape
+    n = dg.n
+    pidx, _, node_start = _kernels.check_inputs(k.KERNEL, dg, table, seq, L)
+    i32 = dict(dtype=torch.int32, device=dev)
+    best_val, best_i, best_j = (torch.empty(B, **i32) for _ in range(3))
+    plane = torch.empty((n_store, B, Lp), dtype=plane_dtype, device=dev)
+    head = (seq, L, table, dg.codes, node_start, pidx, B, n, dg.max_preds, Lp)
+    shape = (B, n, Lp, Lp)
+    if scores_only:   # m is the output
+        _kernels.launch(k.KERNEL, shape, dev, *head, n_store, plane, best_val, best_i, best_j)
+    else:
+        m = torch.empty((B, n, Lp), **i32)   # score scratch
+        _kernels.launch(k.KERNEL, shape, dev, *head, n_store, *flags, m, best_val, best_i,
+                        best_j, plane)
+    return best_val, best_i, best_j, plane
+
+
+def fill_local_v1_cuda(dg, table, seq, L):
+    """K13: the mode-1 fill with packed int32[n, B, Lp]."""
+    return _local(LOCAL_V1, dg, table, seq, L, dg.n)
+
+
+def fill_local_v2_cuda(dg, table, seq, L, dtype=torch.int32):
+    """K15: the mode-1 fill with packed [rows_v2(n), B, Lp] of ``dtype``
+    (int32, or int16 where :func:`check_dtype` passes)."""
+    check_dtype(dtype, dg.n, table, seq.shape[1])
+    i16 = dtype == torch.int16
+    return _local(LOCAL_V2, dg, table, seq, L, rows_v2(dg.n), dtype, flags=(int(i16),))
+
+
+def fill_local_scores_cuda(dg, table, seq, L):
+    """K16: the mode-1 fill's score plane m int32[rows_v34(n), B, Lp]
+    with no directions."""
+    return _local(LOCAL_SCORES, dg, table, seq, L, rows_v34(dg.n), scores_only=True)
+
+
+def fill_local_v4_cuda(dg, table, seq, L):
+    """K17: the mode-1 fill with packed int32[rows_v34(n), B, Lp]."""
+    return _local(LOCAL_V4, dg, table, seq, L, rows_v34(dg.n))
+
+
+def fill_global_v1_cuda(dg, table, seq, L, bta):
+    """K14: the mode-0 fill with packed int32[n, B, Lp + 8], each row's
+    band bounds in lanes Lp and Lp + 1."""
+    k = GLOBAL_V1
+    dev = seq.device
+    B, Lp = seq.shape
+    n = dg.n
+    pidx, cand, _ = _kernels.check_inputs(k.KERNEL, dg, table, seq, L, bta)
+    i32 = dict(dtype=torch.int32, device=dev)
+    m = torch.empty((B, n, Lp), **i32)       # score scratch
+    bsp = torch.empty((B, n), **i32)         # best column per row
+    wss = torch.empty((B, n), **i32)         # window starts (all 0 here)
+    score, last_row, last_col = (torch.empty(B, **i32) for _ in range(3))
+    packed = torch.empty((n, B, Lp + 8), **i32)
+    _kernels.launch(
+        k.KERNEL, (B, n, Lp, Lp), dev,
+        seq, L, bta, table, dg.codes, pidx, dg.min_pred, dg.r_values,
+        cand, int(cand.numel()), B, n, dg.max_preds, Lp, m, bsp, score, last_row,
+        last_col, packed, wss,
+    )
+    return score, last_row, last_col, packed

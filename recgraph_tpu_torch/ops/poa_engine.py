@@ -257,6 +257,13 @@ def fill_local_plain(dg, table, seq, L):
     (local_poa.rs:202-221): the table is transposed against the global
     modes, which matters for the asymmetric HOXD70.
     """
+    return fill_local_plain_planes(dg, table, seq, L)[:4]
+
+
+def fill_local_plain_planes(dg, table, seq, L):
+    """:func:`fill_local_plain`'s four outputs and its score plane m
+    int32[B, n, Lp]: row 0 and column 0 zero, NEG past each read's end,
+    row n-1 zero (the scores-only fill's output, ``poa_variants``)."""
     h = dg.host()
     n = dg.n
     B, Lp = seq.shape
@@ -334,7 +341,7 @@ def fill_local_plain(dg, table, seq, L):
         best_j = torch.where(upd, rarg, best_j)
 
         m[:, i] = m_row
-    return best_val, best_i, best_j, packed
+    return best_val, best_i, best_j, packed, m
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ compact walk crosses to the host:
 Moves are in ABSOLUTE read columns: D/L decrement the column, D/U move
 to the packed predecessor row.  The gap chains of modes 2/3, windowed
 planes (long reads) and the in-walk band check are ported.
+``walk_local_scores`` ports the mode-1 walk over score planes that
+goes with the scores-only fill (``tools/pallas_poa_v3.py:212``).
 """
 
 from __future__ import annotations
@@ -170,6 +172,105 @@ def walk_poa(packed, last_row, last_col_abs, max_steps, band=None, ws=None,
         return dirs, rows, k, row32, col32, None, col32, it
     qstart = col32 - band[0].gather(1, row[:, None])[:, 0]
     return dirs, rows, k, row32, col32, verdict != 2, qstart, it
+
+
+def walk_local_scores(m, seq, table, node_start, codes, pred_idx, best_i, best_j,
+                      max_steps):
+    """Mode-1 walk over score planes (the scores-only fill, K16), re-deriving
+    each step's direction from the scores.
+
+    Port of ``tools/pallas_poa_v3.py:212 walk_local_scores`` (an XLA
+    ``fori_loop`` there, a host-driven loop of batched torch ops on the
+    planes' device here).  ``m`` int32[n_pad, B, Lp] (read axis 1), as
+    ``poa_variants.fill_local_scores`` returns it; ``pred_idx``
+    int32[n, Pm] with -1 padding.  Each step recomputes the fill's d, u
+    and l with its tie rules, including the start-row first-best quirk
+    (local_poa.rs:257-293), so the walk equals ``walk_poa``'s over the
+    packed planes.  A lane stops at row 0, column 0 or an all-negative
+    cell.  Returns (dirs int32[B, max_steps] (-1 past the last step),
+    rows int32[B, max_steps] (0 past it), steps, row, col).  Once every
+    lane has stopped nothing changes, so the loop ends there (tested
+    every CHECK_EVERY iterations).
+    """
+    n_pad, B, Lp = m.shape
+    dev = m.device
+    i32 = torch.int32
+    NEG = -(1 << 28)                    # poa_engine.NEG
+    mf = m.reshape(-1)                  # cell (i, b, j) at i * B * Lp + b * Lp + j
+    base = torch.arange(B, device=dev, dtype=torch.long) * Lp
+    tab = table.to(dev, i32)
+    tT = tab.t()
+    s64 = seq.long()
+    gap = 5                             # scoring.GAP
+    node_start = node_start.to(dev).bool()
+    codes = codes.to(dev).long()
+    pred_idx = pred_idx.to(dev, i32)
+    Pm = pred_idx.shape[1]
+    neg = torch.tensor(NEG, dtype=i32, device=dev)
+
+    def at(i, j):
+        v = mf[i.long() * (B * Lp) + base + j.clamp(min=0).long()]
+        return torch.where(j >= 0, v, neg)
+
+    row, col = best_i.to(i32).clone(), best_j.to(i32).clone()
+    k = torch.zeros(B, dtype=i32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    dirs = torch.full((B, max_steps), -1, dtype=i32, device=dev)
+    rows = torch.zeros((B, max_steps), dtype=i32, device=dev)
+    bidx = torch.arange(B, device=dev)
+    for it in range(max_steps):
+        if it % CHECK_EVERY == 0 and bool(done.all()):
+            break
+        border = (row == 0) | (col == 0)
+        active = ~done & ~border
+        r64 = row.long()
+        is_start = node_start[r64]
+        code_i = codes[r64]
+        seq_j = s64.gather(1, col.clamp(min=0).long()[:, None])[:, 0]
+        sub = tT[code_i, seq_j]
+        gnode = tT[code_i, gap]
+        gseq = tab[seq_j, gap]
+
+        d_pre = torch.full((B,), NEG, dtype=i32, device=dev)
+        u_pre = d_pre.clone()
+        d_arg = torch.zeros(B, dtype=i32, device=dev)
+        u_arg = d_arg.clone()
+        prow = pred_idx[r64]                                  # [B, Pm]
+        for p in range(Pm):
+            pidx = prow[:, p]
+            ok = pidx >= 0
+            ps = pidx.clamp(min=0)
+            pv = torch.where(pidx == 0, 0, at(ps, col))
+            upd = ok & (pv > u_pre)
+            u_arg = torch.where(upd, pidx, u_arg)
+            u_pre = torch.where(upd, pv, u_pre)
+            pv_sh = torch.where(pidx == 0, torch.where(col >= 1, 0, neg), at(ps, col - 1))
+            upd = ok & (pv_sh > d_pre)
+            d_arg = torch.where(upd, pidx, d_arg)
+            d_pre = torch.where(upd, pv_sh, d_pre)
+
+        d_val = torch.where(is_start, d_pre.clamp(min=0), d_pre) + sub
+        u_val = torch.where(is_start, u_pre.clamp(min=0), u_pre) + gnode
+        d_idx = torch.where(is_start, torch.where(d_pre > 0, d_arg, 0), row - 1)
+        u_idx = torch.where(is_start, torch.where(u_pre > 0, u_arg, 0), row - 1)
+        l_val = at(row, col - 1) + gseq
+
+        all_neg = (d_val < 0) & (u_val < 0) & (l_val < 0)
+        d_ge_u = d_val >= u_val
+        dirD = d_ge_u & (d_val >= l_val)
+        dirU = ~d_ge_u & (u_val >= l_val)
+        code = torch.where(dirD, torch.where(seq_j == code_i, D, LOW_D),
+                           torch.where(dirU, U_DIR, L_DIR)).to(i32)
+
+        emit = active & ~all_neg
+        done = done | border | all_neg
+        kk = k.long().clamp(max=max_steps - 1)
+        dirs[bidx, kk] = torch.where(emit, code, dirs[bidx, kk])
+        rows[bidx, kk] = torch.where(emit, row, rows[bidx, kk])
+        row = torch.where(emit & (dirD | dirU), torch.where(dirD, d_idx, u_idx), row).to(i32)
+        col = torch.where(emit & ~dirU, col - 1, col)
+        k = k + emit.to(i32)
+    return dirs, rows, k, row, col
 
 
 def max_walk_steps(n: int, Lp: int) -> int:

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8, K10-K12 and S1 against their plain torch
+"""The CUDA kernels K1-K8, K10-K17 and S1 against their plain torch
 versions, on the card (K7 and K8 also stand for the TPU's path-tiled K9a
 and K9b).
 
@@ -22,7 +22,7 @@ import sys
 import pytest
 import torch
 
-from recgraph_tpu_torch import fuzz, metrics
+from recgraph_tpu_torch import fuzz, kernel_ab, metrics
 from recgraph_tpu_torch.align.pipeline import Options, run
 from recgraph_tpu_torch.graph.pathgraph import PathGraph
 from recgraph_tpu_torch.graph.poagraph import PoaGraph
@@ -30,9 +30,9 @@ from recgraph_tpu_torch.io import fasta, gfa
 from recgraph_tpu_torch.ops import (
     cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_win,
     cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_pathwise_rev, cuda_poa_gap_local,
-    cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_split_summary,
-    pathwise_engine, pathwise_gap_engine, pathwise_window, poa_engine, poa_gap_engine,
-    recombination_engine,
+    cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_poa_variants as cv,
+    cuda_split_summary, pathwise_engine, pathwise_gap_engine, pathwise_window, poa_engine,
+    poa_gap_engine, poa_variants as pv, recombination_engine, traceback_engine as tb,
 )
 from recgraph_tpu_torch.ops.encode import (
     encode_read_aux, encode_reads, path_device_graph, poa_device_graph, rev_device_graph,
@@ -518,3 +518,80 @@ def test_gap67_hardrow_kernel_matches_plain(cuda):
                                         -4, -2, True)
     assert metrics.LAUNCHES[cuda_gap67_fill.KERNEL] == 1
     assert metrics.EVENTS["gap67_hard_rows"] == len(hard) * seq.shape[0]
+
+
+def _variant_pairs(dg, table, seq, L, bta):
+    """(name, kernel, plain, args) for K13-K17; K15 at both element types
+    where int16 holds the values."""
+    loc = (dg, table, seq, L)
+    pairs = [("K13", cv.fill_local_v1_cuda, pv.fill_local_v1_plain, loc),
+             ("K14", cv.fill_global_v1_cuda, pv.fill_global_v1_plain, (*loc, bta)),
+             ("K15 int32", cv.fill_local_v2_cuda, pv.fill_local_v2_plain, loc),
+             ("K16", cv.fill_local_scores_cuda, pv.fill_local_scores_plain, loc),
+             ("K17", cv.fill_local_v4_cuda, pv.fill_local_v4_plain, loc)]
+    try:
+        cv.check_dtype(torch.int16, dg.n, table, seq.shape[1])
+        pairs.append(("K15 int16", cv.fill_local_v2_cuda, pv.fill_local_v2_plain,
+                      (*loc, torch.int16)))
+    except ValueError:
+        pass
+    return pairs
+
+
+def _assert_variants_match(g, reads, btas, sm, device):
+    """K13-K17 equal their plain versions, and K16's walk equals walk_poa's
+    over K2's packed planes."""
+    dg = poa_device_graph(g, device)
+    table = torch.as_tensor(sm.table, dtype=torch.int32).to(device)
+    seq, L = encode_reads(reads, device=device)
+    bta = encode_read_aux(btas, device)
+    for name, kern, plain, args in _variant_pairs(dg, table, seq, L, bta):
+        _assert_equal(kern(*args), plain(*args), name)
+    _, bi, bj, m = cv.fill_local_scores_cuda(dg, table, seq, L)
+    packed = cuda_poa_local.fill_local_cuda(dg, table, seq, L)[3]
+    W = tb.max_walk_steps(dg.n, seq.shape[1])
+    walk = tb.walk_local_scores(m, seq, table, dg.node_start, dg.codes, dg.pred_idx, bi, bj, W)
+    assert kernel_ab.walks_equal(walk, packed, bi, bj, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matrix", ["none", "HOXD70"])
+def test_variant_kernels_match_plain_example(cuda, matrix):
+    seqs, _ = fasta.get_sequences(EXAMPLE[0])
+    g = PoaGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+    reads = seqs[:16]
+    btas = [int(1 + 0.01 * len(s)) if k % 3 else k % 4 for k, s in enumerate(reads)]
+    _assert_variants_match(g, reads, btas, ScoreMatrix.create(matrix, 2, -4), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_variant_kernels_match_plain_random(cuda, seed):
+    """Random DAGs, short and long reads (up to 1,100 columns, two column
+    tiles), both scoring tables; K15 at int16 where the values fit."""
+    rng = random.Random(2000 + seed)
+    gf = fuzz.random_gfa(rng, n_nodes=8 + 3 * seed, n_paths=4, cover_all=True)
+    g = PoaGraph.from_gfa(gf)
+    reads = [fuzz.random_read(rng, gf) for _ in range(6)] + ["$A", "$" + "ACGT" * 40]
+    if seed % 4 == 0:
+        reads.append("$" + "".join(rng.choice("ACGT") for _ in range(1100)))
+    btas = [rng.choice([0, 1, 2, 5, 1000]) for _ in reads]
+    sm = ScoreMatrix.create("HOXD70" if seed % 3 == 0 else "none", 2, -4)
+    _assert_variants_match(g, reads, btas, sm, cuda)
+
+
+@pytest.mark.cuda
+def test_kernel_ab_runs_and_counts(cuda):
+    """The A/B entry point holds every ported variant to its plain version
+    and launches each kernel; int16 past its limits raises on the card."""
+    metrics.reset_phases()
+    assert kernel_ab.main(["16", "v1", "v2", "v3", "v4", "v5", "g1", "g2"]) == 0
+    for k in (cv.LOCAL_V1, cv.GLOBAL_V1, cv.LOCAL_V2, cv.LOCAL_SCORES, cv.LOCAL_V4,
+              cuda_poa_local, cuda_poa_global):
+        assert metrics.LAUNCHES[k.KERNEL] == 5, k.KERNEL   # check, warm-up, three timed
+    assert kernel_ab.main(["16", "v4r16"]) == 2
+    dg = poa_device_graph(PoaGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1])), cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(cuda)
+    seq, L = encode_reads(["$" + "A" * 2100], device=cuda)
+    with pytest.raises(ValueError, match="int16"):
+        cv.fill_local_v2_cuda(dg, table, seq, L, torch.int16)
