@@ -54,14 +54,18 @@ Phases, in order; any failure raises and the script exits nonzero:
             planes, every cell) in modes 6 and 7 on the example graph, a
             1,100-bp read (two column tiles; mode 6), HOXD70 with o = -200 (past
             the TPU kernel's packed-chain gate), 130 paths (past its
-            P <= 128 gate) and (o, e) = (-3, -1); K11 is compared on the
+            P <= 128 gate), 33 paths (K12's chain warp and the lanes that
+            follow it), a node with 40 predecessors (K12's form past 32
+            hub lanes; K12 too) and (o, e) = (-3, -1); K11 is compared on the
             card at its most launched shape, and at its other short-read
             shapes on the leading 8 reads against the plain fill on a CPU
             worker (each read is its own block); at the long reads'
-            launch shapes (three column tiles) read 0's planes in modes 6
+            launch shapes (four column tiles) read 0's planes in modes 6
             and 7 against the scalar oracle (fill_fast) on a CPU worker;
             K12 through its own wrapper on the staged inputs of
-            two hard rows of the graphs at K11's launch shapes; the
+            two hard rows of the graphs at K11's launch shapes and on
+            the row of the node with 40 predecessors (timed without the
+            wrapper's host-side layout, cuda_gap67_hardrow.prepare); the
             superseded TPU generations of the mode-0/1 fills, K13, K15,
             K16 and K17 at K2's launch shapes and K14 at K1's (their
             plain versions lay out the plain fill that K1's or K2's
@@ -100,6 +104,7 @@ a C++ compiler; exits nonzero without CUDA.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -257,7 +262,8 @@ def kernel_cases(example, long, workdir):
     8 long reads, the same three random graphs and the fragment graphs
     whose reverse graphs have delta-leak rows (``fuzz.LEAK_SEEDS``); for
     K11 also a 60-node stretch graph with a 1,100-bp read (two column
-    tiles) and a 130-path graph."""
+    tiles), a 130-path and a 33-path graph, and a node with 40
+    predecessors, each on a path of its own (``fuzz.fan_gfa``)."""
     from recgraph_tpu_torch import fuzz
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.graph.poagraph import PoaGraph
@@ -265,6 +271,8 @@ def kernel_cases(example, long, workdir):
     p126 = make_synth(workdir, "p126", n_back=80, n_reads=8, seed=7, n_paths=126)
     tile = make_synth(workdir, "tile", n_back=60, n_reads=2, seed=7, n_paths=6)
     p130 = make_synth(workdir, "p130", n_back=30, n_reads=4, seed=3, n_paths=130)
+    p33 = make_synth(workdir, "p33", n_back=80, n_reads=2, seed=7, n_paths=33)
+    fan, fan_rng = fuzz.fan_gfa(40), random.Random(40)
     tile_g, tile_reads = load_corpus(*tile, graph=PathGraph)
     tile_reads.append("$" + "".join(random.Random(5).choice("ACGT") for _ in range(1100)))
     cases = {("poa", "example"): load_corpus(*example),
@@ -273,7 +281,10 @@ def kernel_cases(example, long, workdir):
              ("path", "p126"): load_corpus(*p126, graph=PathGraph),
              ("path", "long8"): load_corpus(*long, 8, graph=PathGraph),
              ("path", "tile"): (tile_g, tile_reads),
-             ("path", "p130"): load_corpus(*p130, graph=PathGraph)}
+             ("path", "p130"): load_corpus(*p130, graph=PathGraph),
+             ("path", "p33"): load_corpus(*p33, graph=PathGraph),
+             ("path", "fan40"): (PathGraph.from_gfa(fan),
+                                 [fuzz.random_read(fan_rng, fan) for _ in range(4)])}
     for seed in (101, 202, 303):
         rng = random.Random(seed)
         gf = fuzz.random_gfa(rng, n_nodes=24, n_paths=4, cover_all=True)
@@ -403,7 +414,8 @@ def kernel_specs():
     leak = [case(f"leak{s}", semi=semi) for s in fuzz.LEAK_SEEDS for semi in (False, True)]
     gap = [case("tile")] + [case(c, matrix=m, oe=oe, semi=semi) for semi in (False, True)
                             for c, m, oe in (
-        ("example", "none", (O, E)), ("p130", "none", (O, E)),
+        ("example", "none", (O, E)), ("p130", "none", (O, E)), ("p33", "none", (O, E)),
+        ("fan40", "none", (O, E)),
         ("example", "HOXD70", (-200, -2)), ("random101", "HOXD70", (-200, -2)),
         ("random202", "none", (-3, -1)), ("example", "none", (-3, -1)))]
     return [
@@ -478,7 +490,10 @@ def kernel_specs():
         dict(id="K12", mod=cuda_gap67_hardrow, kern=cuda_gap67_hardrow.hard_cols_cuda,
              plain=pathwise_gap_engine.hard_cols_plain, graph="hard", ops=(40, 0),
              args=lambda x: x.staged, shapes_of=cuda_gap67_fill.KERNEL,
-             launches_of=cuda_gap67_fill.KERNEL, cases=[]),
+             launches_of=cuda_gap67_fill.KERNEL,
+             timed=lambda args: functools.partial(cuda_gap67_hardrow.launch,
+                                                  *cuda_gap67_hardrow.prepare(*args)),
+             cases=[case("fan40", W=-1), case("fan40", W=-1, semi=True)]),
         dict(id="S1", mod=cuda_split_summary,
              kern=cuda_split_summary.col_summary_cuda,
              plain=recombination_engine.col_summary_plain, graph="split", ops=(10, 0),
@@ -519,7 +534,7 @@ def bound(spec, x, got):
     elif spec["graph"] == "gap":
         B, Lp = x.seq.shape
         t = x.tabs
-        graph = nbytes((t.rows, t.lanemask, t.blocks, t.blockmask, t.lanes))
+        graph = nbytes((t.rows, t.lanemask, t.blocks, t.blockmask, t.lanes, t.chain))
         t_bytes = (nbytes(spec["args"](x)) + graph + nbytes(got)) / HBM_BYTES_PER_S
         t_ops = B * t.meta.n * Lp * t.meta.P * c0 / INT32_OPS_PER_S
     elif spec["graph"] == "split":
@@ -712,7 +727,8 @@ def check_case(spec, label, g, reads, c, timed=False):
         return err, None
     bound_ms, bound_by = bound(spec, x, got)
     del got, ref
-    ms = cuda_ms(lambda: spec["kern"](*args), 3)
+    # the kernel's own time (K12: without its wrapper's host-side layout)
+    ms = cuda_ms(spec["timed"](args) if "timed" in spec else lambda: spec["kern"](*args), 3)
     plain_txt = "not measured" if plain_ms is None else f"{plain_ms:.3f} ms"
     log(f"{spec['id']} time at B={B} n={dg.n}{paths} Lp={Lp} W={x.W}: kernel {ms:.3f} ms, "
         f"plain {plain_txt}, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -798,6 +814,7 @@ def cli_run(tag, mode, reads_fa, graph_gfa, out, expect, launches, shapes):
     wall = time.perf_counter() - t0
     got = dict(metrics.LAUNCHES)
     got_shapes = dict(metrics.SHAPES)
+    metrics.flush_device_counters()
     events = dict(metrics.EVENTS)
     phases = metrics.phases_dict()
     peak = torch.cuda.max_memory_allocated() / 2**30

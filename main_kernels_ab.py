@@ -1,17 +1,31 @@
 #!/usr/bin/env python3
-"""Time the main path's mode-0/1 kernels (K1, K2) in several checkouts, in turns, on one GPU.
+"""Time main-path kernels in several checkouts, in turns, on one GPU.
 
     python3 main_kernels_ab.py ROOT [ROOT ...]
 
 For each ROOT in the order given (e.g. parent, change, change, parent),
 a fresh process imports that checkout's ``recgraph_tpu_torch`` (building
-its kernels), makes the stretch corpus (``tools/make_synthetic.make(d,
-700, 10000, 42)``, n = 2,249) and times ``poa_engine.fill_global_best``
-(K1) and ``fill_local_best`` (K2) on its first 3,047 reads (Lp = 152,
-the smoke's most launched shape) with CUDA events: one warm-up, then
-the mean of 3 launches, repeated 5 times.  Prints one JSON line per
-ROOT and the card's ``nvidia-smi`` name and power limit.  Compare two
-checkouts only within one run.  Needs CUDA.
+its kernels) and times with CUDA events, one warm-up first:
+
+- K1 (``poa_engine.fill_global_best``) and K2 (``fill_local_best``) on
+  the first 3,047 reads of the stretch corpus (``tools/make_synthetic.
+  make(d, 700, 10000, 42)``, n = 2,249, Lp = 152): the mean of 3
+  launches, repeated 5 times;
+- K11 (``cuda_gap67_fill.fill_gap67_cuda``, mode 6) at the modes-6/7
+  launch shapes of ``chip_smoke.py``: 232 stretch reads (P = 9), 16
+  reads of the 128-path corpus (``make(d, 700, 512, 42, n_paths=128)``)
+  and 7 long reads (``chip_smoke.make_long``, n = 3,798, P = 10, Lp =
+  2,432): the mean of 2 launches, repeated 3 times;
+- K12 alone (``cuda_gap67_hardrow``) at those three shapes, on the
+  staged inputs of the first hard row and of the hard row with the most
+  blocks (the rows ``chip_smoke.py`` checks), its inputs laid out on the
+  card beforehand and left out of the time: through ``prepare`` and
+  ``launch`` where the checkout has them, else the device-side layout
+  of the older wrapper, which laid its inputs out on every call: the
+  mean of 3 launches, repeated 5 times.
+
+Prints one JSON line per ROOT and the card's ``nvidia-smi`` name and
+power limit.  Compare two checkouts only within one run.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -47,19 +61,80 @@ bta = encode_read_aux([int(1 + 0.01 * len(s)) for s in reads], "cuda")
 fills = {"K1": lambda: poa_engine.fill_global_best(dg, table, seq, L, bta),
          "K2": lambda: poa_engine.fill_local_best(dg, table, seq, L)}
 out = {"root": root, "B": seq.shape[0], "n": dg.n, "Lp": seq.shape[1]}
-for name, fn in fills.items():
+
+
+def timed(fn, reps, runs):
     fn()
-    runs = []
-    for _ in range(5):
+    ms = []
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0.record()
-        for _ in range(3):
+        for _ in range(reps):
             fn()
         t1.record()
         torch.cuda.synchronize()
-        runs.append(t0.elapsed_time(t1) / 3)
-    out[name] = runs
+        ms.append(t0.elapsed_time(t1) / reps)
+    return ms
+
+
+for name, fn in fills.items():
+    out[name] = timed(fn, 3, 5)
+del dg, seq, L, bta, fills
+
+# K11 at the smoke's modes-6/7 launch shapes
+import chip_smoke
+from recgraph_tpu_torch.graph.pathgraph import PathGraph
+from recgraph_tpu_torch.ops import _kernels, cuda_gap67_fill, cuda_gap67_hardrow, pathwise_gap_engine
+
+
+def k12(U, Dc, Dfd, Ypre, lc, x0, tb, nd, fire, isa, after, ai):
+    """K12 alone on hard_cols_plain's arguments, laid out beforehand."""
+    if hasattr(cuda_gap67_hardrow, "prepare"):
+        prep = cuda_gap67_hardrow.prepare(U, Dc, Dfd, Ypre, lc, x0, tb, nd, fire, isa, after,
+                                          ai, -4, -2)
+        return lambda: cuda_gap67_hardrow.launch(*prep)
+    # the older wrapper's layout: [B, k, C] inputs, [B, 4, P] lanes, [5, MB] blocks
+    C, P, B = Ypre.shape
+    Ub, Dcb, Dfb, Ypb = (t.permute(2, 1, 0).contiguous() for t in (U, Dc, Dfd, Ypre))
+    lcb, x0b = lc.permute(2, 0, 1).contiguous(), x0.t().contiguous()
+    blk = torch.stack([tb, nd, fire, isa, after]).contiguous()
+    xs = torch.empty((B, P, C), dtype=torch.int32, device=Ypre.device)
+    ds = torch.empty_like(xs)
+    return lambda: _kernels.launch(cuda_gap67_hardrow.KERNEL, (B, 1, C + 1, C + 1, P),
+                                   Ypre.device, Ub, Dcb, Dfb, Ypb, lcb, x0b, blk, B, U.shape[1],
+                                   P, C, int(ai), -4, -2, xs, ds)
+
+
+d2 = tempfile.mkdtemp(dir=os.environ.get("AB_WORKDIR"))
+with contextlib.redirect_stdout(io.StringIO()):
+    make_synthetic.make(d2, 700, 512, 42, 128)
+long_fa, long_gfa = chip_smoke.make_long(tempfile.mkdtemp(dir=os.environ.get("AB_WORKDIR")))
+for name, gfa_path, fa, B in (("K11 stretch", os.path.join(d, "graph.gfa"), os.path.join(d, "reads.fa"), 232),
+                              ("K11 128 paths", os.path.join(d2, "graph.gfa"), os.path.join(d2, "reads.fa"), 16),
+                              ("K11 long", long_gfa, long_fa, 7)):
+    g = PathGraph.from_gfa(gfa.parse_gfa(gfa_path))
+    tabs = pathwise_gap_engine.gap_tables(g, "cuda")
+    seq, _ = encode_reads(fasta.get_sequences(fa)[0][:B], device="cuda")
+    out[name] = timed(lambda: cuda_gap67_fill.fill_gap67_cuda(tabs, table, seq, -4, -2, False),
+                      2, 3)
+    out[name + " shape"] = [seq.shape[0], g.n, seq.shape[1], g.paths_number]
+    m = tabs.meta
+    hard = [i for i in range(1, m.n - 1) if not m.easy[i]]
+    most = max(hard, key=lambda r: (int(m.bvalid[r].sum()), r))
+    Dm, X, Y = cuda_gap67_fill.fill_gap67_cuda(tabs, table, seq, -4, -2, False)
+    for tag, i in (("first hard row", hard[0]), ("most blocks", most)):
+        sub = table[int(m.codes[i])][seq.long()]
+        U, Dc, Dfd, Ypre, _ = pathwise_gap_engine.stage_hard_row(tabs, Dm, Y, i, sub, -4, -2)
+        (tb, nd, fire, isa, after), ai = pathwise_gap_engine.hard_row_scalars(tabs, i)
+        lc = tabs.lanes[i][:, :, None].expand(-1, -1, seq.shape[0]).contiguous()
+        x0 = X[i, :, :, 0].t().contiguous()
+        key = f"K12{name[3:]} {tag}"
+        out[key] = timed(k12(U, Dc, Dfd, Ypre, lc, x0, tb, nd, fire, isa, after, ai), 3, 5)
+        out[key + " row"] = i
+        del U, Dc, Dfd, Ypre
+    del tabs, seq, Dm, X, Y
+    torch.cuda.empty_cache()
 print(json.dumps(out), flush=True)
 '''
 

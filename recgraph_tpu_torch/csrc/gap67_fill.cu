@@ -20,26 +20,37 @@
 // - Easy rows (one predecessor whose alpha lane is the row's): the
 //   alpha lane's (max,+) chain and the latest "inject" column are block
 //   prefix scans over column tiles (carried across tiles, any Lp), with
-//   the per-column selectors kept in a per-read scratch; then every
-//   (lane, column) cell of the mask lanes replays its value on its own.
+//   the per-column selectors packed into one int a column, kept in
+//   shared memory while it holds them (meta_smem) and else in the
+//   per-read scratch (reads past ~40 kbp); then every (lane, column)
+//   cell of the mask lanes replays its value on its own.
 // - Hard rows: the column-parallel staging (every block's U/y pass, D
 //   candidates and owner-collapsed D sources, pathwise_gap_engine.py:
-//   529-580) into the scratch, the y fixup per column, then one warp
-//   runs K12's column program (gap67_hardrow.cuh) across the columns.
+//   529-580), kept per lane as K12's two inputs V and W in a per-read
+//   scratch; then warp 0 runs K12's column chain (gap67_hardrow.cuh)
+//   while the other warps apply y's fixup, and, for P > 32, every warp
+//   follows the lanes past the chain's 32.
 //
-// Host tables (pathwise_gap_engine.GapTables): rows [n, 8] (code,
-// alpha, flags, pr, eap, fap), lanemask [n, P] (emask | fmask << 1),
-// blocks [n, MB, 4] (pred, pred alpha, tb, flags), blockmask
-// [n, MB, P] (bmask | bmaskq << 1 | bfixmem << 2), lanes [n, 4, P].
+// Host tables (pathwise_gap_engine.GapTables): rows [n, 10] (code,
+// alpha, flags, pr, eap, fap, hubs, alpha slot, isa slot), lanemask
+// [n, P] (emask | fmask << 1), blocks [n, MB, 4] (pred, pred alpha, tb,
+// flags), blockmask [n, MB, P] (bmask | bmaskq << 1 | bfixmem << 2),
+// lanes [n, 4, P] (lane_maps; the fill reads the owning block), chain
+// [n, 4, P] (K12's lane coefficients).
 //
 // What bounds it on this card: the three planes written once (12 bytes
-// a cell); one block's row latency (a hard row's Lp - 1 sequential
-// columns on one warp) bounds the time when reads are few.
+// a cell); a read's row latency bounds the time when reads are few: a
+// hard row's Lp - 1 sequential columns on one warp, ten shuffles and
+// some twenty dependent integer operations each.  The block size
+// follows the row's cells (P * Lp, at most 640 threads) and is halved
+// while the card could not hold every read's block at once.
 //
-// hard_ran (one int, zeroed by the caller) gains the number of (read,
-// hard row) column programs the launch ran.  The kernel allocates
-// nothing, does not synchronise with the host and runs on the stream it
-// is given.
+// hard_ran (one 64-bit count) gains the number of (read, hard row)
+// column programs the launch ran; the caller reads it when it wants.
+// The kernel allocates nothing, does not synchronise with the host and
+// runs on the stream it is given; Lp must be a multiple of 4.
+
+#include <algorithm>
 
 #include "gap67_hardrow.cuh"
 #include "pathwise_common.cuh"
@@ -49,7 +60,7 @@ namespace rgt {
 enum : int { F_EASY = 1, F_START = 2, F_EDELTA = 4, F_FCAP = 8 };
 enum : int { BF_VALID = 1, BF_DELTA = 2, BF_CASE1 = 4, BF_FIRST = 8, BF_FIRE = 16,
              BF_ISA = 32, BF_AFTER = 64 };
-constexpr int ROWW = 8;   // ints per row of `rows`
+constexpr int ROWW = 10;  // ints per row of `rows`
 constexpr int BLKW = 4;   // ints per block of `blocks`
 
 struct Planes {
@@ -65,20 +76,26 @@ struct Planes {
 
 __device__ __forceinline__ int clampP(int a, int P) { return a < P ? a : P - 1; }
 
-__global__ void __launch_bounds__(MAX_THREADS, 1)
+// At most 640 threads a block, so that a thread may hold ~100 registers:
+// K12's chain warp keeps its state, inputs and stores in registers, and
+// at 1,024 threads (64 registers) the kernel spilled.
+constexpr int FILL_THREADS = 640;
+
+__global__ void __launch_bounds__(FILL_THREADS, 1)
 gap67_fill_kernel(const int* __restrict__ seq, const int* __restrict__ table,
                   const int* __restrict__ rows, const int* __restrict__ lanemask,
                   const int* __restrict__ blocks, const int* __restrict__ blockmask,
-                  const int* __restrict__ lanes, int n, int P, int MB, int Lp, int o, int e,
-                  int semiglobal, int* scratch, int* Dm, int* X, int* Y, int* hard_ran) {
+                  const int* __restrict__ lanes, const int* __restrict__ chain, int n, int P,
+                  int MB, int Lp, int o, int e, int semiglobal, int meta_smem, int* scratch,
+                  int* Dm, int* X, int* Y, unsigned long long* hard_ran) {
   __shared__ int s_table[NCODE * NCODE];
   __shared__ int s_warp[32];
-  __shared__ int s_left[MAX_THREADS];
+  __shared__ int s_left[FILL_THREADS];
   extern __shared__ int sm[];
   int* s_x0 = sm;                   // P: the row's first column
-  int* s_st = s_x0 + P;             // 4 P: K12's state
-  int* s_ln = s_st + 4 * P;         // 4 P: the row's lane maps
-  int* s_blk = s_ln + 4 * P;        // 8 MB: pred, ap, tb, flags, nd, fire, isa, after
+  int* s_own = s_x0 + P;            // P: each lane's owning block
+  int* s_st = s_own + P;            // 4 P: K12's state past 32 hubs
+  int* s_blk = s_st + 4 * P;        // 4 MB: pred, ap, tb, flags
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -88,14 +105,11 @@ gap67_fill_kernel(const int* __restrict__ seq, const int* __restrict__ table,
   const int* sb = seq + (size_t)b * Lp;
   const size_t pl = (size_t)P * Lp;
   const Planes pln{Dm, X, Y, (size_t)gridDim.x * pl, (size_t)b * pl};
-  int* scr = scratch + (size_t)b * (3 + 2 * MB + 2 * P) * Lp;
-  int* sc_usel = scr;               // easy rows: per column usel, dsel, src
-  int* sc_dsel = scr + Lp;
-  int* sc_src = scr + 2 * Lp;
-  int* st_U = scr + 3 * Lp;         // hard rows: U, Dc [MB, Lp]; Dfd, Ypre [P, Lp]
-  int* st_Dc = st_U + (size_t)MB * Lp;
-  int* st_Dfd = st_Dc + (size_t)MB * Lp;
-  int* st_Ypre = st_Dfd + pl;
+  int* st_V = scratch + (size_t)b * (2 * P + MB + 1) * Lp;   // hard rows: K12's V and W [P, Lp]
+  int* st_W = st_V + pl;
+  int* st_VA = st_W + pl;           // hard rows: y's fixup corrections [MB, Lp]
+  // Lp: easy rows' src << 3 | dsel << 1 | usel, in shared memory if it fits
+  int* s_meta = meta_smem ? s_blk + 4 * MB : st_VA + (size_t)MB * Lp;
   int* s_pred = s_blk;
   int* s_ap = s_blk + MB;
   int* s_tb = s_blk + 2 * MB;
@@ -133,18 +147,13 @@ gap67_fill_kernel(const int* __restrict__ seq, const int* __restrict__ table,
     if (start) {
       for (int s = tid; s < MB; s += T) {
         const int* Bk = blocks + ((size_t)i * MB + s) * BLKW;
-        const int fl = Bk[3];
         s_pred[s] = Bk[0];
         s_ap[s] = Bk[1];
         s_tb[s] = Bk[2];
-        s_fl[s] = fl;
-        s_blk[4 * MB + s] = Bk[2] != ai;
-        s_blk[5 * MB + s] = (fl & BF_FIRE) != 0;
-        s_blk[6 * MB + s] = (fl & BF_ISA) != 0;
-        s_blk[7 * MB + s] = (fl & BF_AFTER) != 0;
+        s_fl[s] = Bk[3];
       }
       if (!easy)
-        for (int t = tid; t < 4 * P; t += T) s_ln[t] = lanes[(size_t)i * 4 * P + t];
+        for (int q = tid; q < P; q += T) s_own[q] = lanes[(size_t)i * 4 * P + q];
     }
     __syncthreads();
 
@@ -228,9 +237,7 @@ gap67_fill_kernel(const int* __restrict__ seq, const int* __restrict__ table,
         const int fprev = left_neighbour(f, leftF, s_left);
         const int src = tile_prefix_max(j >= 1 && fprev ? j : 0, s_warp, cS);
         if (live) {
-          sc_usel[j] = usel;
-          sc_dsel[j] = dsel;
-          sc_src[j] = src;
+          s_meta[j] = src << 3 | dsel << 1 | usel;
           if (ai < P) {
             Di[(size_t)ai * Lp + j] = dpm_a;
             Xi[(size_t)ai * Lp + j] = x_a;
@@ -249,16 +256,17 @@ gap67_fill_kernel(const int* __restrict__ seq, const int* __restrict__ table,
         } else if (lm[q] & 1) {
           const int* Dq = pD + (size_t)q * Lp;
           const int* Yq = pY + (size_t)q * Lp;
-          const int dsel = sc_dsel[j], src = sc_src[j];
-          yv = sc_usel[j] ? Dq[j] - dl * pDai[j] : Yq[j] - dl * pYai[j];
+          const int mj = s_meta[j];
+          const int dsel = (mj >> 1) & 3, src = mj >> 3;
+          yv = (mj & 1) ? Dq[j] - dl * pDai[j] : Yq[j] - dl * pYai[j];
           const int dm_sh = Dq[j - 1] - dl * pDai[j - 1];
           if (src == 0) {
             xv = s_x0[q];
           } else {
-            const int k = src - 1;
+            const int k = src - 1, mk = s_meta[k];
             if (k == 0) xv = s_x0[q];
-            else if (sc_dsel[k] == 0) xv = Dq[k - 1] - dl * pDai[k - 1];
-            else xv = sc_usel[k] ? Dq[k] - dl * pDai[k] : Yq[k] - dl * pYai[k];
+            else if (((mk >> 1) & 3) == 0) xv = Dq[k - 1] - dl * pDai[k - 1];
+            else xv = (mk & 1) ? Dq[k] - dl * pDai[k] : Yq[k] - dl * pYai[k];
           }
           dv = dsel == 0 ? dm_sh : (dsel == 1 ? yv : xv);
         }
@@ -268,10 +276,12 @@ gap67_fill_kernel(const int* __restrict__ seq, const int* __restrict__ table,
       }
     } else {
       // ---- 3. a hard row (gap.rs:150-539) ----
-      // staging: y per block in order, and the owner's D source, per cell
+      // staging, per cell: y per block in order, and the owner's U, D
+      // candidate and D source, kept as K12's V and W
       for (size_t t = tid; t < pl; t += T) {
         const int q = (int)(t / Lp), j = (int)(t % Lp);
-        int yc = 0;
+        const int so = s_own[q];
+        int yc = 0, u_own = 0;
         for (int s = 0; s < MB; ++s) {
           const int fl = s_fl[s];
           if (!(fl & BF_VALID)) continue;
@@ -287,88 +297,118 @@ gap67_fill_kernel(const int* __restrict__ seq, const int* __restrict__ table,
           if (usel && (m & 1)) yc = Dp[t] - ds * dp_tb;
           if (!usel && (m & ((fl & BF_CASE1) ? 2 : 1))) yc = Yp[t] - ds * yp_tb;
           if (q == tb) yc = usel ? u_dpm : u_y;
+          if (s == so) u_own = usel ? u_dpm : u_y;
         }
-        st_Ypre[t] = yc;
         Yi[t] = yc;
-        int dfd = 0;
-        const int s = s_ln[q];
-        if (s >= 0 && j >= 1) {
-          const int* Dp = pln.d(s_pred[s]);
-          const int ds = (s_fl[s] & BF_DELTA) ? 1 : 0;
-          dfd = Dp[t - 1] - ds * Dp[(size_t)s_tb[s] * Lp + j - 1];
+        if (so >= 0 && j >= 1) {
+          const int* Dp = pln.d(s_pred[so]);
+          const int ds = (s_fl[so] & BF_DELTA) ? 1 : 0;
+          const int dtb = Dp[(size_t)s_tb[so] * Lp + j - 1];
+          const int dfd = Dp[t - 1] - ds * dtb;
+          const int dcand = Dp[(size_t)clampP(s_ap[so], P) * Lp + j - 1] + ds * dtb +
+                            sub_row[sb[j]];
+          st_V[t] = max(dcand, u_own);
+          st_W[t] = dcand >= u_own ? dfd : yc;
         }
-        st_Dfd[t] = dfd;
-      }
-      // staging: every block's U and D candidates per column
-      for (int t = tid; t < MB * Lp; t += T) {
-        const int s = t / Lp, j = t % Lp;
-        const int fl = s_fl[s];
-        int u = 0, dcand = 0;
-        if ((fl & BF_VALID) && j >= 1) {
-          const int tb = s_tb[s], apc = clampP(s_ap[s], P);
-          const int ds = (fl & BF_DELTA) ? 1 : 0;
-          const int* Dp = pln.d(s_pred[s]);
-          const int* Yp = pln.y(s_pred[s]);
-          const int dp_tb = Dp[(size_t)tb * Lp + j];
-          const int u_y = Yp[(size_t)apc * Lp + j] + ds * Yp[(size_t)tb * Lp + j] + e;
-          const int u_dpm = Dp[(size_t)apc * Lp + j] + ds * dp_tb + o + e;
-          u = u_dpm >= u_y ? u_dpm : u_y;
-          dcand = Dp[(size_t)apc * Lp + j - 1] + ds * Dp[(size_t)tb * Lp + j - 1] +
-                  sub_row[sb[j]];
-        }
-        st_U[t] = u;
-        st_Dc[t] = dcand;
       }
       __syncthreads();
-      // y's multi-alpha fixup per column (the column program reads the
-      // pre-fixup y); column 0: y 0, x and d the first column
-      for (int j = tid; j < Lp; j += T) {
-        if (j == 0) {
-          for (int q = 0; q < P; ++q) {
-            Yi[(size_t)q * Lp] = 0;
-            Xi[(size_t)q * Lp] = s_x0[q];
-            Di[(size_t)q * Lp] = s_x0[q];
+      // K12's column chain on warp 0 (gap67_hardrow.cuh) while the other
+      // warps apply y's multi-alpha fixup (the chain read the pre-fixup
+      // y); then, for P > 32, every warp follows the lanes past the hubs
+      const HardRow hr{st_V, st_W, Lp, chain + (size_t)i * 4 * P, s_x0, P, R[6], R[7], R[8],
+                       o, e, Xi, Di, Lp};
+      gap67_hard_row(hr, s_st, [&] {
+        const int ST = T - 32;
+        // the fixup's corrections per column, firing block by block in
+        // order (gap.rs:521-537), tracked on the lanes they read: a fire
+        // block's tb lane gains earlier blocks' corrections, and so does
+        // the row alpha
+        for (int j = tid - 32 + 1; j < Lp; j += ST) {
+          int ya = Yi[(size_t)ai * Lp + j];
+          for (int s = 0; s < MB; ++s) {
+            if (!(s_fl[s] & BF_FIRE)) continue;
+            const int tb = s_tb[s];
+            int yt = Yi[(size_t)tb * Lp + j];
+            for (int s2 = 0; s2 < s; ++s2)
+              if ((s_fl[s2] & BF_FIRE) && (bm[(size_t)s2 * P + tb] & 4))
+                yt += st_VA[(size_t)s2 * Lp + j];
+            const int va = yt - ya;
+            st_VA[(size_t)s * Lp + j] = va;
+            if (bm[(size_t)s * P + ai] & 4) ya += va;
           }
-          continue;
         }
-        for (int s = 0; s < MB; ++s) {
-          if (!(s_fl[s] & BF_FIRE)) continue;
-          const int tb = s_tb[s];
-          const int va = Yi[(size_t)tb * Lp + j] - Yi[(size_t)ai * Lp + j];
-          Yi[(size_t)tb * Lp + j] = va;
-          for (int q = 0; q < P; ++q)
-            if (bm[(size_t)s * P + q] & 4) Yi[(size_t)q * Lp + j] += va;
+        asm volatile("bar.sync 1, %0;" ::"r"(ST) : "memory");   // warps 1.. only
+        // then every cell: a fire block's tb lane takes its correction
+        // (plus a later block's, whose fixup members hold it), any other
+        // member of a firing block's fixup adds that block's; column 0 is 0
+        for (size_t t = tid - 32; t < pl; t += ST) {
+          const int q = (int)(t / Lp), j = (int)(t % Lp);
+          if (j == 0) {
+            Yi[t] = 0;
+            continue;
+          }
+          int hs = -1, f = -1;
+          for (int s = 0; s < MB; ++s) {
+            if (!(s_fl[s] & BF_FIRE)) continue;
+            if (s_tb[s] == q) hs = s;
+            if (bm[(size_t)s * P + q] & 4) f = s;
+          }
+          if (hs >= 0) Yi[t] = st_VA[(size_t)hs * Lp + j] + (f > hs ? st_VA[(size_t)f * Lp + j] : 0);
+          else if (f >= 0) Yi[t] += st_VA[(size_t)f * Lp + j];
         }
-      }
-      __syncthreads();
-      // K12: the column chain on one warp
-      if (tid < 32) {
-        const HardBlocks hb{s_tb, s_blk + 4 * MB, s_blk + 5 * MB, s_blk + 6 * MB,
-                            s_blk + 7 * MB, MB};
-        const HardLanes hl{s_ln, s_ln + P, s_ln + 2 * P, s_ln + 3 * P};
-        gap67_hard_cols(st_U + 1, st_Dc + 1, Lp, st_Dfd + 1, st_Ypre + 1, Lp, Lp - 1, hb, hl,
-                        s_x0, P, ai, o, e, Xi + 1, Di + 1, Lp, s_st);
-        if (tid == 0) ++ran;
-      }
+      });
+      if (tid == 0) ++ran;
     }
     // publishes row i before later rows read it
     __syncthreads();
   }
-  if (tid == 0 && ran) atomicAdd(hard_ran, ran);
+  if (tid == 0 && ran) atomicAdd(hard_ran, (unsigned long long)ran);
 }
 
 }  // namespace rgt
 
+namespace {
+
+// Threads per block: the row's cells (P * Lp, at least 64, at most
+// FILL_THREADS), halved while the card could not hold all B blocks at
+// once (a block's time is one read's row latency, so a second wave would
+// double it).
+int gap67_threads(int B, int P, int Lp, size_t smem) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int T = std::min(rgt::FILL_THREADS, std::max(64, rgt::block_threads(P * Lp)));
+  for (; T > 64; T = std::max(64, (T / 2 + 31) / 32 * 32)) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rgt::gap67_fill_kernel, T, smem);
+    if ((long long)per_sm * sms >= B) break;
+  }
+  return T;
+}
+
+}  // namespace
+
 extern "C" int rgt_gap67_fill(const int* seq, const int* table, const int* rows,
                               const int* lanemask, const int* blocks, const int* blockmask,
-                              const int* lanes, int B, int n, int P, int MB, int Lp, int o, int e,
-                              int semiglobal, int* scratch, int* Dm, int* X, int* Y,
-                              int* hard_ran, void* stream) {
-  if (B < 1 || n < 3 || P < 1 || MB < 1 || Lp < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(9 * P + 8 * MB) * sizeof(int);
-  if (smem > 40 * 1024) return (int)cudaErrorInvalidValue;
-  rgt::gap67_fill_kernel<<<B, rgt::block_threads(Lp), smem, (cudaStream_t)stream>>>(
-      seq, table, rows, lanemask, blocks, blockmask, lanes, n, P, MB, Lp, o, e, semiglobal,
-      scratch, Dm, X, Y, hard_ran);
+                              const int* lanes, const int* chain, int B, int n, int P, int MB,
+                              int Lp, int o, int e, int semiglobal, int* scratch, int* Dm, int* X,
+                              int* Y, unsigned long long* hard_ran, void* stream) {
+  if (B < 1 || n < 3 || P < 1 || MB < 1 || Lp < 4 || Lp % 4) return (int)cudaErrorInvalidValue;
+  // the easy rows' selectors (Lp ints) join shared memory while it holds
+  // them; longer reads keep them in the scratch (scratch holds both)
+  constexpr size_t SMEM_MAX = 160 * 1024;
+  size_t smem = (size_t)(6 * P + 4 * MB) * sizeof(int);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int meta_smem = smem + (size_t)Lp * sizeof(int) <= SMEM_MAX;
+  if (meta_smem) smem += (size_t)Lp * sizeof(int);
+  if (smem > 40 * 1024) {   // past the default 48 KB with the static arrays (3 KB)
+    const cudaError_t err = cudaFuncSetAttribute(
+        rgt::gap67_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int T = gap67_threads(B, P, Lp, smem);
+  rgt::gap67_fill_kernel<<<B, T, smem, (cudaStream_t)stream>>>(
+      seq, table, rows, lanemask, blocks, blockmask, lanes, chain, n, P, MB, Lp, o, e,
+      semiglobal, meta_smem, scratch, Dm, X, Y, hard_ran);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ whose reverse graphs have the reference's delta-leak rows, with
 the package so ``chip_smoke.py`` can draw the same graphs without
 importing the test modules (which import the JAX engines).
 ``tests/test_torch_encode.py`` and ``tests/test_torch_rec_graph.py``
-pin the copies to the originals.
+pin the copies to the originals.  ``fan_gfa`` is the port's own: a row
+of modes 6/7 with more hub lanes than the column program's warp holds.
 """
 
 from __future__ import annotations
@@ -50,6 +51,20 @@ def random_gfa(rng: random.Random, n_nodes=14, n_paths=4, cover_all=False) -> Gf
                 w = walk_through(nid)
                 gfa.paths.append(GfaPath(f"c{nid}", w))
                 covered.update(w)
+    return gfa
+
+
+def fan_gfa(k: int) -> Gfa:
+    """A node with ``k`` predecessors, each on a path of its own: in modes
+    6/7 its row is a hard row with k hub lanes."""
+    rng = random.Random(k)
+    seq = lambda n: "".join(rng.choice("ACGT") for _ in range(n))  # noqa: E731
+    gfa = Gfa()
+    for nid in range(1, k + 3):
+        gfa.segments[nid] = seq(3 if nid == 1 else 4 if nid == k + 2 else 2)
+    for p in range(k):
+        gfa.edges += [(1, p + 2), (p + 2, k + 2)]
+        gfa.paths.append(GfaPath(f"p{p}", [1, p + 2, k + 2]))
     return gfa
 
 

@@ -16,7 +16,11 @@ ladder sends to the full-width fill (``pathwise_win_fullwidth``), and
 the rounds and (read, column) pairs of the modes-8/9 split search
 (``split_rounds``, ``split_pairs``), whose time is the ``split`` phase,
 and the (read, hard row) pairs whose column program (K12) ran inside
-the modes-6/7 fill (``gap67_hard_rows``).
+the modes-6/7 fill (``gap67_hard_rows``).  A kernel that counts an
+event on the device adds to ``device_counter(name, device)``, so its
+launch never waits for it; ``flush_device_counters()`` adds those
+counts into ``EVENTS`` (one wait for the device per name and device)
+and is called where the counts are read.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from collections import Counter
 LAUNCHES: Counter = Counter()
 SHAPES: Counter = Counter()           # (kernel, reads, rows, Lp, stored width[, paths])
 EVENTS: Counter = Counter()           # name -> count
+_DEVICE_EVENTS: dict = {}             # (name, device) -> int64[1] tensor not yet flushed
 PHASES: Counter = Counter()           # name -> exclusive seconds
 _stack: list[list] = []               # [name, child_seconds] frames
 
@@ -35,6 +40,26 @@ _stack: list[list] = []               # [name, child_seconds] frames
 def count_launch(kernel: str, shape: tuple) -> None:
     LAUNCHES[kernel] += 1
     SHAPES[(kernel, *shape)] += 1
+
+
+def device_counter(name: str, device):
+    """An int64[1] tensor on ``device`` that kernels add ``name``'s count
+    to; ``flush_device_counters`` adds it into ``EVENTS[name]``."""
+    key = (name, str(device))
+    t = _DEVICE_EVENTS.get(key)
+    if t is None:
+        import torch
+
+        t = _DEVICE_EVENTS[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return t
+
+
+def flush_device_counters() -> None:
+    """Add every device counter into ``EVENTS`` and drop it; this waits
+    for the kernels that add to them."""
+    while _DEVICE_EVENTS:
+        (event, _), t = _DEVICE_EVENTS.popitem()
+        EVENTS[event] += int(t.item())
 
 
 @contextlib.contextmanager
@@ -57,6 +82,7 @@ def reset_phases() -> None:
     """Zero every counter: phases, kernel launches and events."""
     PHASES.clear()
     EVENTS.clear()
+    _DEVICE_EVENTS.clear()
     _stack.clear()
     LAUNCHES.clear()
     SHAPES.clear()

@@ -80,12 +80,11 @@ _SIGNATURES = {
     # bidx, cols, K, I, Lp, edge0, col_max, edge_any, flat_edge,
     # flat_plain, stream
     "rgt_split_summary": [_P] * 11 + [_F] * 2 + [_P] * 2 + [_I] * 4 + [_P] * 4 + [_P],
-    # seq, table, rows, lanemask, blocks, blockmask, lanes, B, n, P, MB,
-    # Lp, o, e, semiglobal, scratch, Dm, X, Y, hard_ran, stream
-    "rgt_gap67_fill": [_P] * 7 + [_I] * 8 + [_P] * 5 + [_P],
-    # U, Dc, Dfd, Ypre, lanes, x0, blk, B, MB, P, C, ai, o, e, xs, ds,
-    # stream
-    "rgt_gap67_hardrow": [_P] * 7 + [_I] * 7 + [_P] * 2 + [_P],
+    # seq, table, rows, lanemask, blocks, blockmask, lanes, chain, B, n,
+    # P, MB, Lp, o, e, semiglobal, scratch, Dm, X, Y, hard_ran, stream
+    "rgt_gap67_fill": [_P] * 8 + [_I] * 8 + [_P] * 5 + [_P],
+    # V, W, slots, hub, x0, B, P, Lp, o, e, X, D, stream
+    "rgt_gap67_hardrow": [_P] * 5 + [_I] * 5 + [_P] * 2 + [_P],
 }
 
 _lib = None

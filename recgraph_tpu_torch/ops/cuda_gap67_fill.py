@@ -8,8 +8,10 @@ Y) int32[n, B, P, Lp] and agree on every cell.
 ``metrics.LAUNCHES["gap67_fill"]`` counts the launches,
 ``metrics.SHAPES`` records (reads, rows, Lp, Lp, paths) and
 ``metrics.EVENTS["gap67_hard_rows"]`` the (read, hard row) pairs whose
-column program ran inside the launches, as the kernel counts them
-(reading the count waits for the launch to end).
+column program ran inside the launches, as the kernel counts them on
+the device (``metrics.device_counter``): the launch does not wait for
+the kernel; ``metrics.flush_device_counters()`` does, and adds the
+count into ``EVENTS``.
 """
 
 from __future__ import annotations
@@ -33,19 +35,21 @@ def fill_gap67_cuda(tabs, table, seq, o, e, semiglobal):
     n, P, MB = m.n, m.P, m.maxb
     _kernels.check_tensors(KERNEL, dev, seq=seq, table=table, rows=tabs.rows,
                            lanemask=tabs.lanemask, blocks=tabs.blocks,
-                           blockmask=tabs.blockmask, lanes=tabs.lanes)
+                           blockmask=tabs.blockmask, lanes=tabs.lanes, chain=tabs.chain)
     if table.shape != (7, 7):
         raise ValueError(f"{KERNEL}: bad table shape {tuple(table.shape)}")
+    if Lp % 4:
+        raise ValueError(f"{KERNEL}: the read width {Lp} is not a multiple of 4")
     i32 = dict(dtype=torch.int32, device=dev)
-    # per read: the easy rows' alpha-lane selectors (3 Lp) and the hard
-    # rows' staging (U and Dc [MB, Lp], Dfd_own and Ypre [P, Lp])
-    scratch = torch.empty((B, (3 + 2 * MB + 2 * P) * Lp), **i32)
+    # per read: the hard rows' column-program inputs V and W [P, Lp], y's
+    # fixup corrections [MB, Lp] and the easy rows' selectors [Lp] (used
+    # when shared memory cannot hold them)
+    scratch = torch.empty((B, (2 * P + MB + 1) * Lp), **i32)
     Dm, X, Y = (torch.empty((n, B, P, Lp), **i32) for _ in range(3))
-    ran = torch.zeros(1, **i32)
     _kernels.launch(
         KERNEL, (B, n, Lp, Lp, P), dev,
         seq, table, tabs.rows, tabs.lanemask, tabs.blocks, tabs.blockmask, tabs.lanes,
-        B, n, P, MB, Lp, int(o), int(e), int(bool(semiglobal)), scratch, Dm, X, Y, ran,
+        tabs.chain, B, n, P, MB, Lp, int(o), int(e), int(bool(semiglobal)), scratch, Dm, X, Y,
+        metrics.device_counter("gap67_hard_rows", dev),
     )
-    metrics.EVENTS["gap67_hard_rows"] += int(ran.item())
     return Dm, X, Y

@@ -8,7 +8,9 @@ Counterpart of ``recgraph_tpu/ops/pathwise_gap_engine.py``:
   its output planes, which are the row history; ``lane_maps`` and
   ``GapTables`` are the flat int32 tables the kernel reads
   (``pallas_gap67_fill.pack_meta``, ``:807-844``), built once per graph
-  and kept on the device;
+  and kept on the device, with ``chain_coefs``, the hard rows' lane
+  coefficients of the CUDA column program (hub lanes first), and
+  ``hard_cols_chain_plain``, that program run from them alone;
 - ``fill_gap_plain`` ports ``_fill_gap`` (``:334-820``) as a torch row
   loop over rows 1..n-2 (``_fc_nonstart``, ``_fc_start``, ``_easy_row``,
   ``stage_hard_row`` and ``hard_cols_plain``, the plain version of
@@ -261,17 +263,87 @@ def lane_maps(meta: GapMeta) -> np.ndarray:
 # the bits of pallas_gap67_fill.pack_meta
 F_EASY, F_START, F_EDELTA, F_FCAP = 1, 2, 4, 8
 BF_VALID, BF_DELTA, BF_CASE1, BF_FIRST, BF_FIRE, BF_ISA, BF_AFTER = 1, 2, 4, 8, 16, 32, 64
+# lane-coefficient flags (chain_coefs' slots[3]): the owner's tb lane is not
+# the row alpha, the lane is its owner's tb lane, the lane is a firing
+# block's tb lane, and the ``after`` flag of the block its fixup reads
+CF_ND, CF_HOT, CF_HOTL, CF_AFTER = 1, 2, 4, 8
+
+
+def chain_coefs(own, hot, fix, hotl, tb, nd, fire, isa, after, ai):
+    """The lane coefficients of one hard row's column program (K12 on the
+    card), from its lane maps ``own, hot, fix, hotl`` int[P], block
+    scalars ``tb, nd, fire, isa, after`` int[MB] and row alpha ``ai``, as
+    ``hard_cols_plain`` takes them: (slots int32[4, P], hubs, alpha
+    slot, isa slot).
+
+    The hubs are the row alpha and the tb lanes of the blocks that own a
+    lane or fire: the only lanes whose values other lanes read.  Slots
+    hold the hubs first (ascending), then every other lane; per slot,
+    slots[0] is its path, [1] the slot of its owner's tb lane (-1 when no
+    block owns it), [2] the slot whose pre-fixup value its fixup reads
+    (itself for a firing block's tb lane, the tb lane of the firing block
+    whose fixup members hold it, else -1) and [3] its CF_* flags.  The
+    isa slot is the tb lane of the firing block whose fixup members hold
+    the row alpha (-1 none)."""
+    own, hot, fix, hotl = (np.asarray(a, dtype=np.int64) for a in (own, hot, fix, hotl))
+    tb, nd_b, fire, isa, after = (np.asarray(a, dtype=np.int64)
+                                  for a in (tb, nd, fire, isa, after))
+    P = own.shape[0]
+    hubs = sorted({int(ai)} | set(tb[np.unique(own[own >= 0])].tolist())
+                  | set(tb[fire != 0].tolist()))
+    hub_set = set(hubs)
+    path = np.array(hubs + [q for q in range(P) if q not in hub_set], dtype=np.int64)
+    slot = np.empty(P, dtype=np.int64)
+    slot[path] = np.arange(P)
+    o = own[path]
+    oc = np.maximum(o, 0)
+    tbs = np.where(o >= 0, slot[tb[oc]], -1)
+    nd = (o >= 0) & (nd_b[oc] != 0)
+    hotl_ = hotl[path] != 0
+    after_of_tb = np.zeros(P, dtype=np.int64)      # the after flag of the firing block on each tb lane
+    fired = np.flatnonzero(fire)
+    after_of_tb[tb[fired]] = after[fired]
+    f = fix[path]
+    fc = np.maximum(f, 0)
+    fixf = (f >= 0) & (fire[fc] != 0)
+    fxs = np.where(hotl_, np.arange(P), np.where(fixf, slot[tb[fc]], -1))
+    aft = np.where(hotl_, after_of_tb[path], fixf & (after[fc] != 0))
+    flags = (nd * CF_ND + (hot[path] != 0) * CF_HOT + hotl_ * CF_HOTL
+             + (aft != 0) * CF_AFTER)
+    sa = np.flatnonzero(isa)
+    isa_slot = int(slot[tb[sa[0]]]) if sa.size else -1
+    slots = np.stack([path, tbs, fxs, flags]).astype(np.int32)
+    return slots, len(hubs), int(slot[ai]), isa_slot
+
+
+def chain_tables(meta: GapMeta, lanes: np.ndarray):
+    """``chain_coefs`` of every hard row: (slots int32[n, 4, P], hub
+    rows int32[n, 3] = hubs, alpha slot, isa slot); zeros on easy rows."""
+    n, P = meta.n, meta.P
+    slots = np.zeros((n, 4, P), dtype=np.int32)
+    hub = np.zeros((n, 3), dtype=np.int32)
+    for i in range(1, n - 1):
+        if meta.easy[i]:
+            continue
+        ai = int(meta.alphas[i])
+        slots[i], *h = chain_coefs(*lanes[i], meta.btb[i], meta.btb[i] != ai, meta.bfire[i],
+                                   meta.bisa[i], meta.bafter[i], ai)
+        hub[i] = h
+    return slots, hub
 
 
 @dataclass(frozen=True, eq=False)
 class GapTables:
     """One graph's fill metadata as flat int32 tensors on one device.
 
-    rows      int32[n, 8]      code, alpha, row flags, pr, eap, fap, 0, 0
+    rows      int32[n, 10]     code, alpha, row flags, pr, eap, fap, and
+                               for hard rows hubs, alpha slot, isa slot
+                               (``chain_coefs``), 0
     lanemask  int32[n, P]      emask | fmask << 1
     blocks    int32[n, MB, 4]  pred, pred alpha, tb, block flags
     blockmask int32[n, MB, P]  bmask | bmaskq << 1 | bfixmem << 2
     lanes     int32[n, 4, P]   ``lane_maps``
+    chain     int32[n, 4, P]   the hard rows' ``chain_coefs`` slots
     """
 
     meta: GapMeta
@@ -280,6 +352,7 @@ class GapTables:
     blocks: torch.Tensor
     blockmask: torch.Tensor
     lanes: torch.Tensor
+    chain: torch.Tensor
     hard_rows: int
 
 
@@ -288,8 +361,10 @@ def build_gap_tables(meta: GapMeta, device) -> GapTables:
     i32 = lambda a: np.asarray(a, dtype=np.int32)  # noqa: E731
     flags = (i32(m.easy) * F_EASY + i32(m.node_start) * F_START
              + i32(m.edelta) * F_EDELTA + i32(m.fcommon_ap) * F_FCAP)
-    z = np.zeros(m.n, np.int32)
-    rows = np.stack([m.codes, m.alphas, flags, m.pr, m.eap, m.fap, z, z], axis=1)
+    lanes = lane_maps(m)
+    chain, hub = chain_tables(m, lanes)
+    rows = np.concatenate([np.stack([m.codes, m.alphas, flags, m.pr, m.eap, m.fap], axis=1),
+                           hub, np.zeros((m.n, 1), np.int32)], axis=1)
     bflags = (i32(m.bvalid) * BF_VALID + i32(m.bdelta) * BF_DELTA + i32(m.bcase1) * BF_CASE1
               + i32(m.bfirst) * BF_FIRST + i32(m.bfire) * BF_FIRE + i32(m.bisa) * BF_ISA
               + i32(m.bafter) * BF_AFTER)
@@ -298,7 +373,7 @@ def build_gap_tables(meta: GapMeta, device) -> GapTables:
     blockmask = i32(m.bmask) | (i32(m.bmaskq) << 1) | (i32(m.bfixmem) << 2)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)  # noqa: E731
     return GapTables(meta=m, rows=t(rows), lanemask=t(lanemask), blocks=t(blocks),
-                     blockmask=t(blockmask), lanes=t(lane_maps(m)),
+                     blockmask=t(blockmask), lanes=t(lanes), chain=t(chain),
                      hard_rows=int((~m.easy[1 : m.n - 1]).sum()))
 
 
@@ -540,6 +615,65 @@ def hard_cols_plain(U, Dc, Dfd_own, Ypre, lc, x0, tb, nd, fire, isa, after, ai, 
         S = torch.where(hotl, va.gather(1, firetb), N + adds)
         out[c] = S
     return out[:, 0], out[:, 1]
+
+
+def chain_inputs(U, Dc, Dfd_own, Ypre, own):
+    """The column program's two per-lane inputs from the staged ones (the
+    arguments of ``hard_cols_plain``; own int[P, B], -1 none): V = max(Dc,
+    U) of the lane's owner and W = Dfd_own where Dc >= U, else Ypre, both
+    int32[C, P, B].  With them a lane's d is max(V, l) on its owner's tb
+    lane and ``V >= l ? W : x`` elsewhere: the owner's D/U/L choice of
+    ``hard_cols_plain`` (max(Dc, U, l) with Dc first, then U, on ties)."""
+    C, P, B = Dfd_own.shape
+    oc = own.clamp(min=0).long()[None].expand(C, P, B)
+    Uo, Dco = U.gather(1, oc), Dc.gather(1, oc)
+    return torch.maximum(Dco, Uo), torch.where(Dco >= Uo, Dfd_own, Ypre)
+
+
+def hard_cols_chain_plain(V, W, slots, hubs, ai_slot, isa_slot, x0, o, e):
+    """The hard-row column program from ``chain_coefs`` alone, as the CUDA
+    kernel runs it: the hub slots [0, hubs) carry x and d column by
+    column, reading the previous column and the pre-fixup values of other
+    slots by slot; every other lane then follows from its own state and
+    the hubs' values, its fixup adding the post-fixup value of its fix
+    block's tb lane (a hub).  V, W: ``chain_inputs`` int32[C, P, B] per
+    path; slots int32[4, P]; x0 int32[P, B].  Returns xs, ds int32[C, P,
+    B] per path, equal to ``hard_cols_plain``'s."""
+    C, P, B = V.shape
+    path, tbs, fxs, fl = (slots[k].long() for k in range(4))
+    col = lambda t: t[:, None]  # noqa: E731  [P] -> [P, 1]
+    owned, fix, hub = col(tbs >= 0), col(fxs >= 0), col(torch.arange(P) < hubs)
+    nd, aft = col((fl & CF_ND) != 0).to(_I32), col((fl & CF_AFTER) != 0).to(_I32)
+    hot, hotl = col((fl & CF_HOT) != 0), col((fl & CF_HOTL) != 0)
+    src_tb, src_fx = tbs.clamp(min=0), fxs.clamp(min=0)
+    Vs, Ws = V[:, path], W[:, path]                     # slot order
+    x = x0[path].clone()
+    d = x.clone()
+    out = torch.empty((C, 2, P, B), dtype=_I32, device=V.device)
+    for c in range(C):
+        sx, sd, ax, ad = x[src_tb], d[src_tb], x[ai_slot], d[ai_slot]
+        lx = sx + nd * ax + e
+        ld = sd + nd * ad + o + e
+        lsel = ld >= lx
+        l_ = torch.where(lsel, ld, lx)
+        xv = torch.where(hot, l_, torch.where(lsel, d - nd * sd, x - nd * sx))
+        dv = torch.where(hot, torch.maximum(Vs[c], l_), torch.where(Vs[c] >= l_, Ws[c], xv))
+        xv, dv = torch.where(owned, xv, 0), torch.where(owned, dv, 0)
+        # the hubs' fixup: a firing block's tb lane takes the correction,
+        # a member of a firing block's fixup set adds it
+        xai, dai = xv[ai_slot], dv[ai_slot]
+        adj_x = xv[isa_slot] - xai if isa_slot >= 0 else 0
+        adj_d = dv[isa_slot] - dai if isa_slot >= 0 else 0
+        tx = xv[src_fx] - xai - aft * adj_x
+        td = dv[src_fx] - dai - aft * adj_d
+        xh = torch.where(hotl, tx, torch.where(fix, xv + tx, xv))
+        dh = torch.where(hotl, td, torch.where(fix, dv + td, dv))
+        # every other lane adds its fix block's tb lane's post-fixup value
+        x = torch.where(hub, xh, torch.where(fix, xv + xh[src_fx], xv))
+        d = torch.where(hub, dh, torch.where(fix, dv + dh[src_fx], dv))
+        out[c, 0], out[c, 1] = x, d
+    inv = torch.argsort(path)
+    return out[:, 0, inv], out[:, 1, inv]
 
 
 def _hard_row(tabs, Dm, Y, i, x0, sub, o, e):

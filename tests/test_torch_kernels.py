@@ -457,15 +457,24 @@ def _gap67_graph(name, tmp_path):
         rng = random.Random(int(name[6:]))
         gf = fuzz.random_gfa(rng, n_nodes=16, n_paths=5, cover_all=True)
         return PathGraph.from_gfa(gf), [fuzz.random_read(rng, gf) for _ in range(6)]
+    if name == "fan40":
+        gf = fuzz.fan_gfa(40)
+        rng = random.Random(40)
+        return PathGraph.from_gfa(gf), [fuzz.random_read(rng, gf) for _ in range(4)]
+    if name == "long41":   # 41,000 bp: the easy rows' selectors leave shared memory
+        read = "$" + "".join(random.Random(5).choice("ACGT") for _ in range(41000))
+        return PathGraph.from_gfa(fuzz.fan_gfa(40)), [read]
     from make_synthetic import make
 
-    n_paths, n_back = {"p130": (130, 30), "tile": (6, 60)}[name]
+    n_paths, n_back = {"p130": (130, 30), "tile": (6, 60), "tile3": (6, 60), "p32": (32, 30),
+                       "p33": (33, 80), "p64": (64, 80)}[name]
     with contextlib.redirect_stdout(io.StringIO()):
         make(str(tmp_path), n_back=n_back, n_reads=2, seed=7, n_paths=n_paths)
     g = PathGraph.from_gfa(gfa.parse_gfa(str(tmp_path / "graph.gfa")))
     reads = fasta.get_sequences(str(tmp_path / "reads.fa"))[0]
-    if name == "tile":
-        reads.append("$" + "".join(random.Random(5).choice("ACGT") for _ in range(1100)))
+    if name in ("tile", "tile3"):   # 1,100 bp: two 1,024-column tiles; 2,100 bp: three
+        n_bp = 1100 if name == "tile" else 2100
+        reads.append("$" + "".join(random.Random(5).choice("ACGT") for _ in range(n_bp)))
     return g, reads
 
 
@@ -474,13 +483,19 @@ def _gap67_graph(name, tmp_path):
     ("example", "none", (-4, -2)), ("example", "HOXD70", (-200, -2)),
     ("random31", "none", (-3, -1)), ("random32", "HOXD70", (-200, -2)),
     ("p130", "none", (-4, -2)), ("tile", "none", (-4, -2)),
+    ("p32", "none", (-4, -2)), ("p33", "none", (-4, -2)), ("p64", "HOXD70", (-4, -2)),
+    ("tile3", "none", (-4, -2)), ("fan40", "none", (-4, -2)), ("long41", "none", (-4, -2)),
 ])
 def test_gap67_fill_kernel_matches_plain(cuda, tmp_path, name, matrix, oe):
     """K11 (with K12's column program in its hard rows) on every plane
     cell, both modes: the example graph (up to 9 blocks a row), HOXD70
     with o = -200 (past the TPU kernel's packed-chain gate), random
-    covered DAGs, 130 paths (past its P <= 128 gate) and a read of
-    1,100 bp (two column tiles)."""
+    covered DAGs, 130 paths (past its P <= 128 gate), reads of 1,100
+    and 2,100 bp (two and three column tiles of the easy rows' scans),
+    32, 33 and 64 paths (the chain warp alone, then one and 32 lanes
+    that follow it), and a row of 40 hub lanes (the column program's
+    shared-memory form), and a 41,000-bp read on that graph (the easy
+    rows' selectors in the per-read scratch, not in shared memory)."""
     g, reads = _gap67_graph(name, tmp_path)
     table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table, dtype=torch.int32)
     tabs_c = pathwise_gap_engine.gap_tables(g, cuda)
@@ -517,7 +532,34 @@ def test_gap67_hardrow_kernel_matches_plain(cuda):
     pathwise_gap_engine.fill_gap_device(g, ScoreMatrix.create("none", 2, -4), seq.to(cuda),
                                         -4, -2, True)
     assert metrics.LAUNCHES[cuda_gap67_fill.KERNEL] == 1
+    metrics.flush_device_counters()
     assert metrics.EVENTS["gap67_hard_rows"] == len(hard) * seq.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p64", "fan40"])
+def test_gap67_hardrow_kernel_matches_plain_wide(cuda, tmp_path, name):
+    """K12 through its own wrapper where lanes follow the chain warp (64
+    paths) and past 32 hub lanes, on every hard row in both modes."""
+    g, reads = _gap67_graph(name, tmp_path)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table, dtype=torch.int32)
+    tabs = pathwise_gap_engine.gap_tables(g, "cpu")
+    seq, _ = encode_reads(reads)
+    m = tabs.meta
+    hard = [i for i in range(1, m.n - 1) if not m.easy[i]]
+    assert hard
+    for semi in (False, True):
+        Dm, X, Y = pathwise_gap_engine.fill_gap_plain(tabs, table, seq, -4, -2, semi)
+        for i in hard:
+            sub = table[int(m.codes[i])][seq.long()]
+            U, Dc, Dfd, Ypre, _ = pathwise_gap_engine.stage_hard_row(tabs, Dm, Y, i, sub, -4, -2)
+            (tb, nd, fire, isa, after), ai = pathwise_gap_engine.hard_row_scalars(tabs, i)
+            lc = tabs.lanes[i][:, :, None].expand(-1, -1, seq.shape[0]).contiguous()
+            args = (U, Dc, Dfd, Ypre, lc, X[i, :, :, 0].t().contiguous(), tb, nd, fire, isa,
+                    after)
+            ref = pathwise_gap_engine.hard_cols_plain(*args, ai, -4, -2)
+            got = cuda_gap67_hardrow.hard_cols_cuda(*(t.to(cuda) for t in args), ai, -4, -2)
+            _assert_equal(tuple(t.cpu() for t in got), ref, (name, semi, i))
 
 
 def _variant_pairs(dg, table, seq, L, bta):
