@@ -49,7 +49,10 @@ Phases, in order; any failure raises and the script exits nonzero:
             mode 5 and K8 in mode 9, on a 126-path graph and past the JAX
             engine's packed-chain gate, K8 on the fragment graphs whose
             reverse graphs have delta-leak rows (clone rows, ghost-alpha
-            rows), and S1 (bitwise f32) with r = 0.1, with R = r = 0
+            rows), K7 and K8 at the edges of their layout (one path; 7
+            paths at 1, 2 and 4 blocks a read; 126 at 1; a read width of
+            151; a 41,000-bp read, the device-scratch form), and S1
+            (bitwise f32) with r = 0.1, with R = r = 0
             (ties) and on columns with no valid pair; K11 (all three
             planes, every cell) in modes 6 and 7 on the example graph, a
             1,100-bp read (two column tiles; mode 6), HOXD70 with o = -200 (past
@@ -263,7 +266,9 @@ def kernel_cases(example, long, workdir):
     whose reverse graphs have delta-leak rows (``fuzz.LEAK_SEEDS``); for
     K11 also a 60-node stretch graph with a 1,100-bp read (two column
     tiles), a 130-path and a 33-path graph, and a node with 40
-    predecessors, each on a path of its own (``fuzz.fan_gfa``)."""
+    predecessors, each on a path of its own (``fuzz.fan_gfa``); for K7
+    and K8 also random graphs of 1 and 7 paths and one 41,000-bp read on
+    the 40-predecessor graph."""
     from recgraph_tpu_torch import fuzz
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.graph.poagraph import PoaGraph
@@ -273,6 +278,7 @@ def kernel_cases(example, long, workdir):
     p130 = make_synth(workdir, "p130", n_back=30, n_reads=4, seed=3, n_paths=130)
     p33 = make_synth(workdir, "p33", n_back=80, n_reads=2, seed=7, n_paths=33)
     fan, fan_rng = fuzz.fan_gfa(40), random.Random(40)
+    long41 = "$" + "".join(random.Random(5).choice("ACGT") for _ in range(41000))
     tile_g, tile_reads = load_corpus(*tile, graph=PathGraph)
     tile_reads.append("$" + "".join(random.Random(5).choice("ACGT") for _ in range(1100)))
     cases = {("poa", "example"): load_corpus(*example),
@@ -284,7 +290,13 @@ def kernel_cases(example, long, workdir):
              ("path", "p130"): load_corpus(*p130, graph=PathGraph),
              ("path", "p33"): load_corpus(*p33, graph=PathGraph),
              ("path", "fan40"): (PathGraph.from_gfa(fan),
-                                 [fuzz.random_read(fan_rng, fan) for _ in range(4)])}
+                                 [fuzz.random_read(fan_rng, fan) for _ in range(4)]),
+             ("path", "long41"): (PathGraph.from_gfa(fan), [long41])}
+    for name, seed, paths in (("p1", 61, 1), ("p7", 67, 7)):
+        rng = random.Random(seed)
+        gf = fuzz.random_gfa(rng, n_nodes=20 + 10 * (paths > 1), n_paths=paths, cover_all=True)
+        reads = [fuzz.random_read(rng, gf) for _ in range(6)] + ["$" + "ACGT" * 70]
+        cases[("path", name)] = (PathGraph.from_gfa(gf), reads)
     for seed in (101, 202, 303):
         rng = random.Random(seed)
         gf = fuzz.random_gfa(rng, n_nodes=24, n_paths=4, cover_all=True)
@@ -299,7 +311,7 @@ def kernel_cases(example, long, workdir):
 
 
 def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None, rec=(4, 0.1),
-         dead=False, plain=True, dtype="int32", extra=False):
+         dead=False, plain=True, dtype="int32", extra=False, cluster=None, width=None):
     """One exactness case: the named graph and reads, the scoring table,
     the window width (S1: the pairs; K12: -1 for the hard row with the
     most blocks), the affine penalties, mode 5, 7 or 9 (``semi``), the
@@ -307,10 +319,12 @@ def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None, rec=(4
     whether no pair is valid (``dead``), where the reference runs: the
     plain version on the card (True), the plain fill on a CPU worker for
     the leading reads ("cpu"), or the scalar oracle on a CPU worker for
-    read 0 ("oracle"), K15's element type, and whether the spec's
-    ``extra`` check runs (the most launched main-path shape)."""
+    read 0 ("oracle"), K15's element type, whether the spec's
+    ``extra`` check runs (the most launched main-path shape), for K7/K8
+    the blocks a read (else the wrapper's choice), and a read width to
+    cut the encoded reads to (one not a multiple of 4)."""
     return dict(name=name, matrix=matrix, W=W, oe=oe, semi=semi, pad_to=pad_to, rec=rec,
-                dead=dead, plain=plain, dtype=dtype, extra=extra)
+                dead=dead, plain=plain, dtype=dtype, extra=extra, cluster=cluster, width=width)
 
 
 # K1's and K2's plain fills on each input, shared with the plain versions
@@ -412,6 +426,13 @@ def kernel_specs():
     win = [dict(c, W=32) for c in poa]   # W = 32: some reads overflow
     rand = [case(f"random{s}", semi=semi) for s in (101, 202, 303) for semi in (False, True)]
     leak = [case(f"leak{s}", semi=semi) for s in fuzz.LEAK_SEEDS for semi in (False, True)]
+    # K7/K8 at the edges of their layout (cuda_pathwise.plan): one path; 7
+    # paths at 1, 2 and 4 blocks a read and the wrapper's choice; 126 at
+    # 1; a width of 151; a 41,000-bp read (the device-scratch form)
+    edges = [case("p1"), case("p1", semi=True), case("p7"), case("p7", semi=True),
+             *(case("p7", cluster=k) for k in (1, 2, 4)), case("p126", pad_to=256, cluster=1),
+             case("example", width=151), case("example", semi=True, width=151),
+             case("long41"), case("long41", semi=True)]
     gap = [case("tile")] + [case(c, matrix=m, oe=oe, semi=semi) for semi in (False, True)
                             for c, m, oe in (
         ("example", "none", (O, E)), ("p130", "none", (O, E)), ("p33", "none", (O, E)),
@@ -468,7 +489,8 @@ def kernel_specs():
                            case("example", "HOXD70"),
                            # past the JAX engine's packed-chain gate
                            case("example", "HOXD70", semi=True, pad_to=320),
-                           case("p126", pad_to=256), case("p126", semi=True, pad_to=256)]),
+                           case("p126", pad_to=256), case("p126", semi=True, pad_to=256),
+                           *edges]),
         dict(id="K10", mod=cuda_pathwise_win, kern=cuda_pathwise_win.fill_pathwise_win_cuda,
              plain=pathwise_window.fill_pathwise_win_plain, graph="path", ops=(30, 0),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.W, pathwise_window.rmin_tensor(x.dg)),
@@ -482,7 +504,8 @@ def kernel_specs():
              cases=leak + [case("example"), case("example", semi=True),
                            case("example", "HOXD70"),
                            case("example", "HOXD70", semi=True, pad_to=320),
-                           case("p126", pad_to=256), case("p126", semi=True, pad_to=256)]),
+                           case("p126", pad_to=256), case("p126", semi=True, pad_to=256),
+                           *edges]),
         dict(id="K11", mod=cuda_gap67_fill, kern=cuda_gap67_fill.fill_gap67_cuda,
              plain=pathwise_gap_engine.fill_gap_plain, graph="gap", ops=(24, 0),
              args=lambda x: (x.tabs, x.table, x.seq, x.o, x.e, x.semi),
@@ -646,6 +669,8 @@ def check_case(spec, label, g, reads, c, timed=False):
     table = torch.as_tensor(ScoreMatrix.create(c["matrix"], 2, -4).table,
                             dtype=torch.int32).cuda()
     seq, L = encode_reads(reads, pad_to=c["pad_to"], device="cuda")
+    if c["width"] is not None:
+        seq = seq[:, : c["width"]].contiguous()
     bta = encode_read_aux([int(1 + 0.01 * len(s)) for s in reads], "cuda")
     x = SimpleNamespace(g=g, dg=dg, table=table, seq=seq, L=L, bta=bta, W=c["W"],
                         o=c["oe"][0], e=c["oe"][1], semi=c["semi"], dtype=c["dtype"])
@@ -656,7 +681,7 @@ def check_case(spec, label, g, reads, c, timed=False):
     if kind == "hard":
         hard_case(x, c)
     args = spec["args"](x)
-    got = spec["kern"](*args)
+    got = spec["kern"](*args, **({} if c["cluster"] is None else {"cluster": c["cluster"]}))
     got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
     B, Lp = seq.shape
@@ -678,6 +703,8 @@ def check_case(spec, label, g, reads, c, timed=False):
         how = f"mode {9 if c['semi'] else 8}"
         if kind == "split":
             how += f", R={c['rec'][0]} r={c['rec'][1]}" + (", no valid pair" if c["dead"] else "")
+    if c["cluster"] is not None:
+        how += f", {c['cluster']} blocks a read"
     err = compare(f"{spec['id']} {label} {c['matrix']} {how} W={x.W}", got, ref)
     note = spec["note"](x, got) if "note" in spec else ""
     if c["extra"] and "extra" in spec:

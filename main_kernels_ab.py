@@ -11,6 +11,12 @@ its kernels) and times with CUDA events, one warm-up first:
   the first 3,047 reads of the stretch corpus (``tools/make_synthetic.
   make(d, 700, 10000, 42)``, n = 2,249, Lp = 152): the mean of 3
   launches, repeated 5 times;
+- K7 (``cuda_pathwise.fill_pathwise_cuda``) and K8
+  (``cuda_pathwise_rev.fill_pathwise_rev_cuda``) at the pathwise launch
+  shapes of ``chip_smoke.py``: 348 stretch reads (P = 9; K7 in modes 4
+  and 5, K8 in mode 8), 24 reads of the 128-path corpus (K7 mode 4, K8
+  mode 8) and 49 (K7 mode 4), and 11 long reads (P = 10, Lp = 2,440;
+  K7 mode 4, K8 mode 8): the mean of 3 launches, repeated 3 times;
 - K11 (``cuda_gap67_fill.fill_gap67_cuda``, mode 6) at the modes-6/7
   launch shapes of ``chip_smoke.py``: 232 stretch reads (P = 9), 16
   reads of the 128-path corpus (``make(d, 700, 512, 42, n_paths=128)``)
@@ -82,10 +88,42 @@ for name, fn in fills.items():
     out[name] = timed(fn, 3, 5)
 del dg, seq, L, bta, fills
 
-# K11 at the smoke's modes-6/7 launch shapes
 import chip_smoke
 from recgraph_tpu_torch.graph.pathgraph import PathGraph
-from recgraph_tpu_torch.ops import _kernels, cuda_gap67_fill, cuda_gap67_hardrow, pathwise_gap_engine
+from recgraph_tpu_torch.ops import (
+    _kernels, cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_rev,
+    pathwise_gap_engine,
+)
+from recgraph_tpu_torch.ops.encode import path_device_graph, rev_device_graph
+
+d2 = tempfile.mkdtemp(dir=os.environ.get("AB_WORKDIR"))
+with contextlib.redirect_stdout(io.StringIO()):
+    make_synthetic.make(d2, 700, 512, 42, 128)
+long_fa, long_gfa = chip_smoke.make_long(tempfile.mkdtemp(dir=os.environ.get("AB_WORKDIR")))
+
+# K7 (modes 4/5) and K8 (mode 8) at the smoke's pathwise launch shapes
+for tag, gfa_path, fa, B, kerns in (
+        ("stretch", os.path.join(d, "graph.gfa"), os.path.join(d, "reads.fa"), 348,
+         ("K7 m4", "K7 m5", "K8 m8")),
+        ("128 paths", os.path.join(d2, "graph.gfa"), os.path.join(d2, "reads.fa"), 24,
+         ("K7 m4", "K8 m8")),
+        ("128 paths", os.path.join(d2, "graph.gfa"), os.path.join(d2, "reads.fa"), 49,
+         ("K7 m4",)),
+        ("long", long_gfa, long_fa, 11, ("K7 m4", "K8 m8"))):
+    g = PathGraph.from_gfa(gfa.parse_gfa(gfa_path))
+    dg, dgr = path_device_graph(g, "cuda"), rev_device_graph(g.reverse(), "cuda")
+    seq, L = encode_reads(fasta.get_sequences(fa)[0][:B], device="cuda")
+    for k in kerns:
+        if k.startswith("K7"):
+            fn = lambda: cuda_pathwise.fill_pathwise_cuda(dg, table, seq, k == "K7 m5")
+        else:
+            fn = lambda: cuda_pathwise_rev.fill_pathwise_rev_cuda(dgr, table, seq, L, True)
+        out[f"{k} {tag} {B}"] = timed(fn, 3, 3)
+    out[f"pathwise {tag} {B} shape"] = [B, g.n, seq.shape[1], g.paths_number]
+    del dg, dgr, seq, L
+    torch.cuda.empty_cache()
+
+# K11 at the smoke's modes-6/7 launch shapes
 
 
 def k12(U, Dc, Dfd, Ypre, lc, x0, tb, nd, fire, isa, after, ai):
@@ -106,10 +144,6 @@ def k12(U, Dc, Dfd, Ypre, lc, x0, tb, nd, fire, isa, after, ai):
                                    P, C, int(ai), -4, -2, xs, ds)
 
 
-d2 = tempfile.mkdtemp(dir=os.environ.get("AB_WORKDIR"))
-with contextlib.redirect_stdout(io.StringIO()):
-    make_synthetic.make(d2, 700, 512, 42, 128)
-long_fa, long_gfa = chip_smoke.make_long(tempfile.mkdtemp(dir=os.environ.get("AB_WORKDIR")))
 for name, gfa_path, fa, B in (("K11 stretch", os.path.join(d, "graph.gfa"), os.path.join(d, "reads.fa"), 232),
                               ("K11 128 paths", os.path.join(d2, "graph.gfa"), os.path.join(d2, "reads.fa"), 16),
                               ("K11 long", long_gfa, long_fa, 7)):

@@ -34,6 +34,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
     # n_cand, B, n, Pm, Lp, m, bsp, score, last_row, last_col, packed,
@@ -67,15 +68,21 @@ _SIGNATURES = {
     # seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp, o, e, m,
     # y, best_val, best_i, best_j, packed, packed_x, packed_y, stream
     "rgt_poa_gap_local_fill": [_P] * 6 + [_I] * 6 + [_P] * 8 + [_P],
-    # seq, table, codes, grep, gpred, pslot, B, n, P, Lp, Gd, semiglobal,
-    # G, kidx, flag, A, stream
-    "rgt_pathwise_fill": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_P],
+    # seq, table, codes, grep, gpred, pslot, gcount, B, n, P, Lp, Gd,
+    # semiglobal, cluster, threads, smem, smem_form, cw, scratch, stride, A,
+    # stream
+    "rgt_pathwise_fill": [_P] * 7 + [_I] * 11 + [_P, _LL, _P] + [_P],
+    # threads, smem, smem_form, cw -> blocks an SM holds (K7; K8 below),
+    # or -error
+    "rgt_pathwise_per_sm": [_I] * 4,
+    "rgt_pathwise_rev_per_sm": [_I] * 4,
     # seq, L, table, codes, grep, gpred, pslot, rmin, B, n, P, Lp, Gd, W,
     # gw, kidx, flag, rowv, bsp, Aw, ws, bound, stream
     "rgt_pathwise_win_fill": [_P] * 8 + [_I] * 6 + [_P] * 8 + [_P],
-    # seq, L, table, codes, grep, gpred, pslot, qsrc, B, n, P, Lp, Gd,
-    # mode8, Gs, kidx, flag, A, stream
-    "rgt_pathwise_rev_fill": [_P] * 8 + [_I] * 6 + [_P] * 4 + [_P],
+    # seq, L, table, codes, grep, gpred, pslot, qsrc, gcount, B, n, P, Lp,
+    # Gd, mode8, cluster, threads, smem, smem_form, cw, scratch, stride, A,
+    # stream
+    "rgt_pathwise_rev_fill": [_P] * 9 + [_I] * 11 + [_P, _LL, _P] + [_P],
     # fmax, farg, vf, rmax, rarg, vr, dfs, dfe, ids, fwe, rve, R, r,
     # bidx, cols, K, I, Lp, edge0, col_max, edge_any, flat_edge,
     # flat_plain, stream

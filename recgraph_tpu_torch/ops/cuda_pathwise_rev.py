@@ -8,6 +8,7 @@ Its plain version is ``recombination_engine.fill_pathwise_rev_plain``;
 both return W int32[B, P, n, Lp] and agree bit for bit, on the
 delta-leak graphs too.  ``metrics.LAUNCHES["pathwise_rev"]`` counts the
 launches and ``metrics.SHAPES`` records (reads, rows, Lp, Lp, paths).
+The launch is laid out as K7's (``cuda_pathwise.plan``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
+from .cuda_pathwise import group_counts, launch_plan, scratch_tensor
 from .encode import group_table
 
 KERNEL = "pathwise_rev"
@@ -23,29 +25,30 @@ REPLACES = "recgraph_tpu/ops/pallas_pathwise.py:622"
 REPLACES_BIGP = "recgraph_tpu/ops/pallas_pathwise_bigp.py:512"
 
 
-def fill_pathwise_rev_cuda(dgr, table, seq, L, mode8):
+def fill_pathwise_rev_cuda(dgr, table, seq, L, mode8, cluster=None):
     """Launch the reverse pathwise fill on the GPU (``dgr``: the reverse
-    graph's encoding, with ``qsrc_of``)."""
+    graph's encoding, with ``qsrc_of``; ``cluster``: blocks a read, else
+    ``cuda_pathwise.plan``'s choice)."""
     dev = seq.device
     B, Lp = seq.shape
     n, P = dgr.n, dgr.paths_number
     if dgr.qsrc_of is None:
         raise ValueError(f"{KERNEL}: needs the reverse graph (encode.rev_device_graph)")
     grep, gpred, pslot = group_table(dgr)
+    gcount = group_counts(dgr)
     Gd = grep.shape[1]
     _kernels.check_tensors(KERNEL, dev, seq=seq, L=L, table=table, codes=dgr.codes,
-                           grep=grep, gpred=gpred, pslot=pslot, qsrc=dgr.qsrc_of)
+                           grep=grep, gpred=gpred, pslot=pslot, qsrc=dgr.qsrc_of, gcount=gcount)
     if table.shape != (7, 7) or L.shape != (B,):
         raise ValueError(f"{KERNEL}: bad shapes table {tuple(table.shape)}, "
                          f"L {tuple(L.shape)} for B={B}")
-    i32 = dict(dtype=torch.int32, device=dev)
-    Gs = torch.empty((B, Lp), **i32)               # gap suffix sums
-    kidx = torch.empty((B, Gd, Lp), **i32)         # per group: first non-L column
-    flag = torch.empty((B, Gd, Lp), **i32)         # per group: the rep moved D
-    A = torch.empty((B, P, n, Lp), **i32)
+    pl = launch_plan("rgt_pathwise_rev_per_sm", dev, B, P, Lp, Gd, cluster)
+    scratch = scratch_tensor(pl, B, dev)
+    A = torch.empty((B, P, n, Lp), dtype=torch.int32, device=dev)
     _kernels.launch(
         KERNEL, (B, n, Lp, Lp, P), dev,
-        seq, L, table, dgr.codes, grep, gpred, pslot, dgr.qsrc_of, B, n, P, Lp, Gd,
-        int(bool(mode8)), Gs, kidx, flag, A,
+        seq, L, table, dgr.codes, grep, gpred, pslot, dgr.qsrc_of, gcount, B, n, P, Lp, Gd,
+        int(bool(mode8)), pl.cluster, pl.threads, pl.smem, int(pl.smem_form), pl.cw,
+        scratch, pl.stride, A,
     )
     return A

@@ -111,6 +111,63 @@ def fill_pathwise_plain(dg, table, seq, semiglobal):
     return A
 
 
+def replay_table_plain(Ar, G, subc, gap, restart, L=None):
+    """The per-group table the chain warps of K7 and K8 build
+    (``csrc/pathwise_common.cuh``), from the group's rep row ``Ar``
+    int32[B, Lp] at the group's pred row: (src, add) int32[B, Lp] such
+    that every lane q of the group fills
+
+        row_q[j] = (0 if src[j] < 0 else Aq[src[j]]) + add[j]
+
+    with Aq its own plane (K8: its source plane) at that pred row.
+    ``G`` is the read's gap prefix sums (K7) or suffix sums (K8), ``subc``
+    sm(code_i, read code at j) (K8: of the reverse read), ``gap`` the
+    node's gap, ``restart`` mode 4 (K7) or mode 8 (K8): whether the
+    restart column (K7 column 0, K8 column L - 1) reads the pred's value
+    there plus the gap, else it restarts at 0.  K8 passes the read
+    lengths ``L`` int[B]: its chain runs right to left and its column 0
+    and columns past the read are 0 (src -1, add 0)."""
+    B, Lp = Ar.shape
+    dev = Ar.device
+    j = torch.arange(Lp, device=dev).expand(B, Lp)
+    u = Ar + gap
+    if L is None:                                   # K7: from the left
+        d = _shift_right(Ar) + subc
+        rcol = torch.zeros((B, 1), dtype=torch.long, device=dev)
+        ach = torch.maximum(d, u)
+    else:                                           # K8: from the right
+        d = torch.roll(Ar, -1, dims=1)
+        d[:, -1] = NEG
+        d = d + subc
+        rcol = (L.to(dev).long() - 1)[:, None]
+        ach = torch.where(j < rcol + 1, torch.maximum(d, u), NEG)
+    is_r = j == rcol
+    ach = torch.where(is_r, u if restart else torch.zeros_like(u), ach)
+    x = ach - G
+    if L is None:
+        row = G + torch.cummax(x, dim=1).values
+    else:
+        row = G + torch.cummax(x.flip(1), dim=1).values.flip(1)
+    isD = ~is_r & (row == d)
+    nonL = is_r | isD | (row == u)
+    if L is None:                                   # the last non-L column <= j
+        k = torch.cummax(torch.where(nonL, j, -1), dim=1).values
+    else:                                           # the first non-L column >= j
+        k = -torch.cummax(torch.where(nonL, -j, -Lp).flip(1), dim=1).values.flip(1)
+    kc = k.clamp(0, Lp - 1)
+    kD, kR = isD.gather(1, kc), is_r.gather(1, kc)
+    base = G - G.gather(1, kc)
+    src = torch.where(kD, kc + (1 if L is not None else -1), kc)
+    add = torch.where(kD, subc.gather(1, kc), torch.full_like(Ar, gap)) + base
+    src = torch.where(kR, kc if restart else torch.full_like(kc, -1), src)
+    add = torch.where(kR, base + (gap if restart else 0), add)
+    if L is not None:
+        zero = (j == 0) | (j > rcol) | (k >= Lp)
+        src = torch.where(zero, -1, src)
+        add = torch.where(zero, 0, add)
+    return src.to(_I32), add.to(_I32)
+
+
 def fill_pathwise_best(dg, table, seq, semiglobal):
     """Pathwise fill: the CUDA kernel for CUDA tensors, the plain torch
     version for CPU tensors.  One kernel serves every path count: the

@@ -246,6 +246,60 @@ def test_pathwise_kernel_matches_plain_corpora(cuda, tmp_path, corpus):
                       (corpus, semiglobal))
 
 
+def _pathwise_edge(name, tmp_path):
+    """(PathGraph, reads, read width or None, clusters) of a K7/K8 case
+    at the edges of their launch layout (``cuda_pathwise.plan``)."""
+    if name == "p1":
+        rng = random.Random(61)
+        gf = fuzz.random_gfa(rng, n_nodes=20, n_paths=1, cover_all=True)
+        return PathGraph.from_gfa(gf), [fuzz.random_read(rng, gf) for _ in range(5)], None, (1,)
+    if name == "p7":
+        rng = random.Random(67)
+        gf = fuzz.random_gfa(rng, n_nodes=30, n_paths=7, cover_all=True)
+        reads = [fuzz.random_read(rng, gf) for _ in range(6)] + ["$" + "ACGT" * 70]
+        return PathGraph.from_gfa(gf), reads, None, (None, 1, 2, 4)
+    if name == "p126":
+        from make_synthetic import make
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            make(str(tmp_path), n_back=80, n_reads=8, seed=7, n_paths=126)
+        g = PathGraph.from_gfa(gfa.parse_gfa(str(tmp_path / "graph.gfa")))
+        return g, fasta.get_sequences(str(tmp_path / "reads.fa"))[0][:8], None, (1, 8)
+    if name == "lp150":   # 150 columns: one column a thread, no 16-byte stores
+        g = PathGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+        reads = [r[:150] for r in fasta.get_sequences(EXAMPLE[0])[0][:6]]
+        return g, reads, 150, (None, 1, 2)
+    # long41: one 41,000-bp read on a row of 40 groups: the device-scratch form
+    read = "$" + "".join(random.Random(5).choice("ACGT") for _ in range(41000))
+    return PathGraph.from_gfa(fuzz.fan_gfa(40)), [read], None, (None, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p1", "p7", "p126", "lp150", "long41"])
+def test_pathwise_kernels_at_layout_edges(cuda, tmp_path, name):
+    """K7 and K8 at the edges of their layout, both modes each, every
+    cell equal to the plain fills: one path; 7 paths (not a multiple of
+    the cluster size) at cluster sizes 1, 2 and 4 and the wrapper's own
+    choice; 126 paths at 1 and 8 blocks a read; a read width of 150 (not
+    a multiple of 4); a 41,000-bp read on a row of 40 groups (the
+    per-read scratch in device memory, not shared memory)."""
+    g, reads, width, clusters = _pathwise_edge(name, tmp_path)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table, dtype=torch.int32).to(cuda)
+    seq, L = encode_reads(reads, pad_to=256 if name == "p126" else None, device=cuda)
+    if width is not None:
+        seq = seq[:, :width].contiguous()
+    dg, dgr = path_device_graph(g, cuda), rev_device_graph(g.reverse(), cuda)
+    for semi in (False, True):
+        ref = pathwise_engine.fill_pathwise_plain(dg, table, seq, semi)
+        ref_r = recombination_engine.fill_pathwise_rev_plain(dgr, table, seq, L, not semi)
+        for cluster in clusters:
+            _assert_equal(cuda_pathwise.fill_pathwise_cuda(dg, table, seq, semi, cluster),
+                          ref, ("K7", name, semi, cluster))
+            _assert_equal(cuda_pathwise_rev.fill_pathwise_rev_cuda(dgr, table, seq, L, not semi,
+                                                                   cluster),
+                          ref_r, ("K8", name, semi, cluster))
+
+
 @pytest.mark.cuda
 def test_pathwise_win_kernel_matches_plain(cuda, tmp_path):
     """K10 on long reads at window widths from 16 (the guard fails) to
