@@ -22,7 +22,8 @@ Phases, in order; any failure raises and the script exits nonzero:
             tests/goldens/stretch_mode4_sample.gaf, a sample byte-equal to
             the port's CPU run on the same reads, reads/s, the phase
             breakdown and peak memory; then -m 8 and -m 9 on the same
-            corpus (K7, K8 and S1; the split search's rounds and pairs);
+            corpus (K7, K8 and S1's bound and guided entries; the split
+            search's launches and pairs);
             then -m 6 and -m 7 (K11; the lines go to stdout whatever -o
             says, two a read; a sample of 8 reads byte-equal to the CPU
             run); then -m 4, -m 8 and -m 6 on 512 reads of the 128-path
@@ -52,8 +53,18 @@ Phases, in order; any failure raises and the script exits nonzero:
             rows), K7 and K8 at the edges of their layout (one path; 7
             paths at 1, 2 and 4 blocks a read; 126 at 1; a read width of
             151; a 41,000-bp read, the device-scratch form), and S1
-            (bitwise f32) with r = 0.1, with R = r = 0
-            (ties) and on columns with no valid pair; K11 (all three
+            (bitwise f32): its per-pair entry at the chunk shapes its
+            guided entry ran at (256 pairs a launch) and with r = 0.1,
+            with R = r = 0 (ties) and on columns with no valid pair; its
+            guided entry against the plain search (_run_split_guided),
+            all seven outputs bit for bit, in modes 8 and 9 at 1 block a
+            read and at the wrapper's count, at every chunk shape and on
+            the example graph (r = 0.1, R = r = 0, no valid pair, -R 10
+            -r 2 -B 0.5), each time with the invariant (every column
+            with ub + 0.5 >= the read's final threshold was evaluated)
+            checked on the columns it evaluated; its bound entry against
+            _column_ub at its launch shapes and on the example graph;
+            K11 (all three
             planes, every cell) in modes 6 and 7 on the example graph, a
             1,100-bp read (two column tiles; mode 6), HOXD70 with o = -200 (past
             the TPU kernel's packed-chain gate), 130 paths (past its
@@ -86,7 +97,9 @@ Phases, in order; any failure raises and the script exits nonzero:
             and bound at the shape it was launched at most often; K9a and
             K9b, the TPU's path-tiled variants of K7 and K8, are their
             kernels at the 128-path shapes; K12's program runs inside
-            K11, so its launches are K11's), and the last line {"ok":
+            K11, so its launches are K11's, and S1's per-pair entry's
+            device function runs inside its guided entry, so its launches
+            are the guided entry's), and the last line {"ok":
             true, "device": {...}}.
 
 From phase 4 on, the CPU runs that the card's output is held against
@@ -365,6 +378,50 @@ def corpus_kind(spec):
     return "poa" if spec["graph"] == "poa" else "path"
 
 
+def guided_kern(inputs, geom_t, ub, active, init, R, r, host, cluster=None):
+    """S1's guided entry on a chunk (``cluster``: blocks a read)."""
+    from recgraph_tpu_torch.ops import cuda_split_summary
+
+    return cuda_split_summary.split_guided_cuda(inputs, geom_t, ub, active, init, R, r,
+                                                blocks=cluster)
+
+
+def guided_plain(inputs, geom_t, ub, active, init, R, r, host):
+    """The plain search on the same inputs, its seven outputs as the
+    guided entry's int32[7, B] rows (best as f32 bits)."""
+    import numpy as np
+    import torch
+
+    from recgraph_tpu_torch.ops import recombination_engine as rec
+
+    best, taken, fen, rsn, fp, rp, col = rec._run_split_guided(
+        inputs, host.geom, geom_t, host.active, host.init, R, r,
+        round_pairs=rec.ROUND_PAIRS["cuda"])
+    rows = np.stack([best.view(np.int32), taken.astype(np.int32), fen, rsn, fp, rp, col])
+    return torch.from_numpy(rows).to(inputs[0].device)
+
+
+def guided_note(x, got):
+    """The guided entry again with its per-read state: the same outputs,
+    and the invariant (every column with ub + 0.5 >= the read's final
+    threshold was evaluated); keeps the evaluated columns for the bound."""
+    from recgraph_tpu_torch.ops import cuda_split_summary, recombination_engine as rec
+
+    out, st = cuda_split_summary.split_guided_cuda(*x.gargs[:7], blocks=x.cluster,
+                                                   with_state=True)
+    compare("S1g with its state", (out,), got)
+    bad = rec.split_unevaluated(st["ub"].cpu().numpy(), st["done"].cpu().numpy(),
+                                st["col_max"].cpu().numpy(), x.gargs[7].init)
+    if bad.any():
+        raise AssertionError(f"S1g: {int(bad.sum())} needed columns were not evaluated")
+    x.state = st
+    B, I, _ = x.inputs[0].shape
+    C = x.cluster or cuda_split_summary.launch_blocks(x.inputs[0].device, B, I)
+    k = int(st["done"].sum())
+    return (f" C={C} blocks a read, {k} pairs evaluated ({k / B:.1f} a read), "
+            f"{int(out[1].sum())} reads split; invariant holds")
+
+
 def kernel_specs():
     """Per kernel: wrapper module, plain version, the graph kind it runs
     on, its arguments built from one case (``x``: dg, table, seq, L, bta,
@@ -375,6 +432,8 @@ def kernel_specs():
     checked at K2's or K1's launch shapes (``shapes_of``), their plain
     versions laid out from the plain fill K1's or K2's check ran
     (``shared``); their launches are the kernel A/B phase's (``ab``)."""
+    from types import SimpleNamespace
+
     import torch
 
     from recgraph_tpu_torch import fuzz, kernel_ab
@@ -416,6 +475,9 @@ def kernel_specs():
         end = pathwise_engine._end_meta(x.g, "cuda")
         score = pathwise_engine._endings_global_dev(fc, *end)[2]
         return f" W={x.W} guard fails {int((score <= got[2]).sum())}/{x.seq.shape[0]}"
+
+    def s1_entry(kernel, replaces):   # an entry of S1 as the result line lists it
+        return SimpleNamespace(KERNEL=kernel, SOURCE=cuda_split_summary.SOURCE, REPLACES=replaces)
 
     poa = [case(c) for c in ("example", "random101", "random202", "random303")]
     local = poa + [case("example", "HOXD70")]
@@ -517,13 +579,37 @@ def kernel_specs():
              timed=lambda args: functools.partial(cuda_gap67_hardrow.launch,
                                                   *cuda_gap67_hardrow.prepare(*args)),
              cases=[case("fan40", W=-1), case("fan40", W=-1, semi=True)]),
+        # S1's per-pair entry at the chunk shapes its guided entry ran at,
+        # PAIRS_PER_LAUNCH pairs a launch; its device function runs inside
+        # the guided entry, so its launches are the guided entry's
         dict(id="S1", mod=cuda_split_summary,
              kern=cuda_split_summary.col_summary_cuda,
              plain=recombination_engine.col_summary_plain, graph="split", ops=(10, 0),
              args=lambda x: (*x.inputs, x.geom, *x.rec, x.bidx, x.cols), main_also=dict(semi=True),
+             shapes_of=cuda_split_summary.GUIDED, launches_of=cuda_split_summary.GUIDED,
+             main_width=recombination_engine.PAIRS_PER_LAUNCH,
              cases=[case("example"), case("example", semi=True), case("example", rec=(0, 0.0)),
                     case("example", rec=(10, 2.0)), case("example", dead=True),
                     case("random101"), case("leak4")]),
+        # S1's guided entry against the plain search (``_run_split_guided``,
+        # its host rounds of the per-pair entry as the main path ran them
+        # before), all seven outputs bit for bit, in modes 8 and 9 at 1
+        # block a read and the wrapper's count at every chunk shape, with
+        # the invariant checked on its evaluated columns (``guided_note``)
+        dict(id="S1g", mod=s1_entry(cuda_split_summary.GUIDED, cuda_split_summary.REPLACES_GUIDED),
+             kern=guided_kern, plain=guided_plain, graph="guided",
+             ops=(10, 0), args=lambda x: x.gargs, note=guided_note,
+             every_shape=[dict(semi=True), dict(cluster=1), dict(semi=True, cluster=1)],
+             cases=[dict(c, cluster=k) for k in (None, 1) for c in (
+                 case("example"), case("example", semi=True), case("example", rec=(0, 0.0)),
+                 case("example", rec=(10, 2.0, 0.5)), case("example", dead=True))]),
+        # S1's bound entry against _column_ub, bit for bit
+        dict(id="S1b", mod=s1_entry(cuda_split_summary.BOUND, cuda_split_summary.REPLACES_BOUND),
+             kern=cuda_split_summary.column_ub_cuda,
+             plain=lambda *a: recombination_engine._column_ub(*a[:6]), graph="bound",
+             ops=(16, 0), args=lambda x: x.bargs, main_also=dict(semi=True),
+             cases=[case("example"), case("example", semi=True), case("example", rec=(0, 0.0)),
+                    case("example", dead=True)]),
     ]
 
 
@@ -538,12 +624,17 @@ def bound(spec, x, got):
     the graph arrays the kernel reads: for POA codes, predecessors,
     fallbacks and distances, for paths the codes and the group table,
     and for the reverse graph its qsrc table; for S1 the six summaries
-    at its pairs' columns, the geometry and the pairs) and each output
+    at its pairs' columns, the geometry and the pairs; for its guided
+    entry the summaries at the columns it evaluated, the geometry, ub,
+    the active columns and the baselines; for its bound entry the flags
+    and the values where they hold, and the sign weights) and each output
     written once (every tensor the kernel returns).  Operations: per
     stored cell (reads x rows x width x paths), a fixed count for the
     recurrence plus a count per predecessor, at this graph's mean
     predecessors per row; for S1 a fixed count per candidate pair that
-    has both sides on their paths (the pairs the kernel evaluates).  K11
+    has both sides on their paths (the pairs the kernel evaluates; the
+    guided entry's evaluated pairs as this run's data chose them; for its
+    bound entry a count per summary cell).  K11
     reads the reads, the table and the graph's fill tables and writes
     the three planes; K12 reads its staged inputs and writes x and d,
     with a fixed count per (column, lane, read)."""
@@ -560,6 +651,20 @@ def bound(spec, x, got):
         graph = nbytes((t.rows, t.lanemask, t.blocks, t.blockmask, t.lanes, t.chain))
         t_bytes = (nbytes(spec["args"](x)) + graph + nbytes(got)) / HBM_BYTES_PER_S
         t_ops = B * t.meta.n * Lp * t.meta.P * c0 / INT32_OPS_PER_S
+    elif spec["graph"] == "bound":   # the flags, and the values where they hold
+        fmax, vf, rmax, vr, wf, wr, _ = x.bargs
+        cells = fmax.numel()
+        t_bytes = (2 * cells + 4 * (int(vf.sum()) + int(vr.sum())) + nbytes((wf, wr))
+                   + nbytes(got)) / HBM_BYTES_PER_S
+        t_ops = cells * c0 / INT32_OPS_PER_S
+    elif spec["graph"] == "guided":
+        (B, I, Lp), done = x.inputs[0].shape, x.state["done"]
+        b, c = done.nonzero(as_tuple=True)
+        nvf = x.inputs[2][b, :, c].sum(1).double()
+        nvr = x.inputs[5][b, :, c].sum(1).double()
+        ub_etc = B * Lp * (4 + 1) + B * 4   # ub, active, init_best
+        t_bytes = (b.numel() * I * 18 + I * 14 + ub_etc + nbytes(got)) / HBM_BYTES_PER_S
+        t_ops = float((nvf * nvr).sum()) * c0 / INT32_OPS_PER_S
     elif spec["graph"] == "split":
         K, (B, I, Lp) = x.bidx.shape[0], x.inputs[0].shape
         b, c = x.bidx.long(), x.cols.long()
@@ -597,17 +702,27 @@ def split_case(g, reads, c, x):
     """S1's inputs for case ``c``: K7 and K8 on the card for the reads,
     the per-cell best paths, the geometry and the pairs (``c["W"]``
     pairs spread over the reads and columns, or every interior column of
-    every read)."""
+    every read); for the guided entry (``x.gargs``) also ub, the active
+    columns of the band (``c["rec"]``: R, r and the band width, 1 when
+    not given) and the baselines; for the bound entry (``x.bargs``) the
+    summaries and flags with the sign weights."""
+    from types import SimpleNamespace
+
+    import numpy as np
     import torch
 
-    from recgraph_tpu_torch.ops import cuda_pathwise, cuda_pathwise_rev, recombination_engine
+    from recgraph_tpu_torch.ops import (
+        cuda_pathwise, cuda_pathwise_rev, pathwise_engine, recombination_engine as rec,
+    )
     from recgraph_tpu_torch.ops.encode import rev_device_graph
 
     rg = reverse_of(g)
     dgr = rev_device_graph(rg, "cuda")
     Af = cuda_pathwise.fill_pathwise_cuda(x.dg, x.table, x.seq, c["semi"])
     Ar = cuda_pathwise_rev.fill_pathwise_rev_cuda(dgr, x.table, x.seq, x.L, not c["semi"])
-    inputs = list(recombination_engine.split_inputs(Af, Ar, x.dg.paths_on))
+    inputs = list(rec.split_inputs(Af, Ar, x.dg.paths_on))
+    finalcol = pathwise_engine._final_column(Af, x.L).cpu().numpy()
+    init = rec._baseline(9 if c["semi"] else 8, finalcol, g)[0]
     del Af, Ar
     if c["dead"]:
         inputs[5] = torch.zeros_like(inputs[5])
@@ -618,9 +733,20 @@ def split_case(g, reads, c, x):
     else:
         p = torch.arange(c["W"], device="cuda")
         bidx, cols = p % B, 1 + (p * 37) % (Lp - 2)
-    x.inputs, x.rec = tuple(inputs), c["rec"]
-    x.geom = recombination_engine._SplitGeometry(g, rg).tensors("cuda")
+    R, r, rbw = (*c["rec"], 1.0)[:3]
+    x.inputs, x.rec = tuple(inputs), (R, r)
+    geom = rec._SplitGeometry(g, rg)
+    x.geom = geom.tensors("cuda")
     x.bidx, x.cols = bidx.to(torch.int32), cols.to(torch.int32)
+    Lnp = x.L.cpu().numpy()
+    oob = np.maximum((Lnp * (1.0 - rbw) / 2.0).astype(np.int64), 1)
+    jcol = np.arange(Lp)
+    active = (jcol[None, :] >= oob[:, None]) & (jcol[None, :] < (Lnp - oob)[:, None])
+    wf, wr = (torch.from_numpy(w).cuda() for w in rec._sign_weights(geom, r))
+    x.bargs = (inputs[0], inputs[2], inputs[3], inputs[5], wf, wr, geom.paths)
+    x.gargs = (x.inputs, x.geom, rec._split_ub(x.inputs, geom, r), torch.from_numpy(active).cuda(),
+               torch.from_numpy(init.astype(np.float32)).cuda(), R, r,
+               SimpleNamespace(geom=geom, active=active, init=init))
 
 
 def hard_case(x, c):
@@ -673,8 +799,9 @@ def check_case(spec, label, g, reads, c, timed=False):
         seq = seq[:, : c["width"]].contiguous()
     bta = encode_read_aux([int(1 + 0.01 * len(s)) for s in reads], "cuda")
     x = SimpleNamespace(g=g, dg=dg, table=table, seq=seq, L=L, bta=bta, W=c["W"],
-                        o=c["oe"][0], e=c["oe"][1], semi=c["semi"], dtype=c["dtype"])
-    if kind == "split":
+                        o=c["oe"][0], e=c["oe"][1], semi=c["semi"], dtype=c["dtype"],
+                        cluster=c["cluster"])
+    if kind in ("split", "guided", "bound"):
         split_case(g, reads, c, x)
     if kind in ("gap", "hard"):
         x.tabs = gap_tables(g, "cuda")
@@ -701,8 +828,10 @@ def check_case(spec, label, g, reads, c, timed=False):
         how = f"mode {7 if c['semi'] else 6}, o={x.o}, e={x.e}"
     else:
         how = f"mode {9 if c['semi'] else 8}"
-        if kind == "split":
-            how += f", R={c['rec'][0]} r={c['rec'][1]}" + (", no valid pair" if c["dead"] else "")
+        if kind in ("split", "guided", "bound"):
+            how += (f", R={c['rec'][0]} r={c['rec'][1]}"
+                    + (f" B={c['rec'][2]}" if len(c["rec"]) > 2 else "")
+                    + (", no valid pair" if c["dead"] else ""))
     if c["cluster"] is not None:
         how += f", {c['cluster']} blocks a read"
     err = compare(f"{spec['id']} {label} {c['matrix']} {how} W={x.W}", got, ref)
@@ -783,6 +912,7 @@ def check_kernels(shapes, corpora, cases):
             raise AssertionError(f"{spec['id']} {kernel} has no main-path launch")
         for k, ((B, n, Lp, W), P, launches) in enumerate(ours):
             g, reads = corpora[(corpus_kind(spec), n, P)]
+            W = spec.get("main_width", W)
             plain = True
             if Lp > spec.get("oracle_past_lp", Lp):
                 plain = "oracle"
@@ -799,6 +929,9 @@ def check_kernels(shapes, corpora, cases):
             if k == 0 and "main_also" in spec:
                 err = max(err, check_case(spec, "main path", g, reads[:B],
                                           dict(main, **spec["main_also"]))[0])
+            for more in spec.get("every_shape", []):
+                err = max(err, check_case(spec, f"main path x{launches}", g, reads[:B],
+                                          dict(main, **more))[0])
             if spec["graph"] == "hard":   # K12 also on the row with the most blocks
                 err = max(err, check_case(spec, f"main path x{launches}", g, reads[:B],
                                           dict(main, W=-1))[0])
@@ -1096,7 +1229,8 @@ def main() -> int:
     many = make_synth(workdir, "many_paths", **MANY_PATHS)
     long = make_long(workdir)
     short = (cuda_poa_global, cuda_poa_local, cuda_poa_gap_global, cuda_poa_gap_local)
-    rec = [cuda_pathwise.KERNEL, cuda_pathwise_rev.KERNEL, cuda_split_summary.KERNEL]
+    rec = [cuda_pathwise.KERNEL, cuda_pathwise_rev.KERNEL, cuda_split_summary.BOUND,
+           cuda_split_summary.GUIDED]
     gap = [cuda_gap67_fill.KERNEL]
 
     # 3. goldens through the port's pipeline on the card

@@ -22,6 +22,16 @@ its kernels) and times with CUDA events, one warm-up first:
   reads of the 128-path corpus (``make(d, 700, 512, 42, n_paths=128)``)
   and 7 long reads (``chip_smoke.make_long``, n = 3,798, P = 10, Lp =
   2,432): the mean of 2 launches, repeated 3 times;
+- the split search of modes 8/9 on one chunk (``recombination_engine.
+  split_search_best``, S1's guided entry, where the checkout has it,
+  else ``_run_split_guided``'s host rounds of S1 as the main path ran
+  them), on K7/K8 planes built once per checkout and mode, at the
+  smoke's recombination chunk shapes: 348 stretch reads (modes 8 and
+  9), 24 reads of the 128-path corpus (mode 8) and 11 long reads (modes
+  8 and 9): the wall of the whole search (``torch.cuda.synchronize``
+  on both sides) and its span in CUDA events, one warm-up, 3 runs, with
+  the pairs and rounds a run took and a digest of the seven outputs
+  (equal across checkouts);
 - K12 alone (``cuda_gap67_hardrow``) at those three shapes, on the
   staged inputs of the first hard row and of the hard row with the most
   blocks (the rows ``chip_smoke.py`` checks), its inputs laid out on the
@@ -120,6 +130,76 @@ for tag, gfa_path, fa, B, kerns in (
             fn = lambda: cuda_pathwise_rev.fill_pathwise_rev_cuda(dgr, table, seq, L, True)
         out[f"{k} {tag} {B}"] = timed(fn, 3, 3)
     out[f"pathwise {tag} {B} shape"] = [B, g.n, seq.shape[1], g.paths_number]
+    del dg, dgr, seq, L
+    torch.cuda.empty_cache()
+
+# the split search of modes 8/9 on one chunk at the smoke's recombination
+# chunk shapes (the CLI's costs: R 4, r 0.1, no band): S1's guided entry
+# through split_search_best where the checkout has it, else the host
+# rounds of S1's per-pair entry as the main path ran them
+import hashlib
+import time
+
+import numpy as np
+from recgraph_tpu_torch import metrics
+from recgraph_tpu_torch.ops import pathwise_engine, recombination_engine as rec
+
+
+def split_fn(inputs, geom, geom_t, active, init):
+    if hasattr(rec, "split_search_best"):
+        return lambda: rec.split_search_best(inputs, geom, geom_t, active, init, 4, 0.1)
+    return lambda: rec._run_split_guided(inputs, geom, geom_t, active, init, 4, 0.1,
+                                         round_pairs=rec.ROUND_PAIRS["cuda"])
+
+
+def walled(fn, runs):
+    """(wall ms, CUDA-event ms) per run, torch.cuda.synchronize() on both
+    sides, one warm-up first; and the last run's outputs."""
+    fn()
+    wall, dev = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        res = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        dev.append(e0.elapsed_time(e1))
+    return wall, dev, res
+
+
+for tag, gfa_path, fa, B, modes in (
+        ("stretch", os.path.join(d, "graph.gfa"), os.path.join(d, "reads.fa"), 348, (8, 9)),
+        ("128 paths", os.path.join(d2, "graph.gfa"), os.path.join(d2, "reads.fa"), 24, (8,)),
+        ("long", long_gfa, long_fa, 11, (8, 9))):
+    g = PathGraph.from_gfa(gfa.parse_gfa(gfa_path))
+    rg = g.reverse()
+    dg, dgr = path_device_graph(g, "cuda"), rev_device_graph(rg, "cuda")
+    seq, L = encode_reads(fasta.get_sequences(fa)[0][:B], device="cuda")
+    geom = rec._SplitGeometry(g, rg)
+    geom_t = geom.tensors("cuda")
+    Lnp = L.cpu().numpy()
+    jcol = np.arange(seq.shape[1])
+    active = (jcol[None, :] >= 1) & (jcol[None, :] < (Lnp - 1)[:, None])
+    for mode in modes:
+        Af = pathwise_engine.fill_pathwise_best(dg, table, seq, mode == 9)
+        Ar = rec.fill_pathwise_rev_best(dgr, table, seq, L, mode == 8)
+        init = rec._baseline(mode, pathwise_engine._final_column(Af, L).cpu().numpy(), g)[0]
+        inputs = rec.split_inputs(Af, Ar, dg.paths_on)
+        del Af, Ar
+        metrics.reset_phases()
+        wall, dev, res = walled(split_fn(inputs, geom, geom_t, active, init), 3)
+        metrics.flush_device_counters()
+        key = f"split m{mode} {tag} {B}"
+        out[key + " wall"], out[key + " device"] = wall, dev
+        out[key + " pairs, rounds"] = [metrics.EVENTS["split_pairs"] / 4,
+                                       metrics.EVENTS["split_rounds"] / 4]
+        out[key + " outputs"] = hashlib.sha256(b"".join(np.asarray(x).tobytes()
+                                                        for x in res)).hexdigest()[:16]
+        del inputs
+    out[f"split {tag} {B} shape"] = [B, g.n, seq.shape[1], g.paths_number]
     del dg, dgr, seq, L
     torch.cuda.empty_cache()
 

@@ -14,7 +14,9 @@ gave it.  ``EVENTS`` counts what a run should
 show without it being a failure: the mode-4 long reads that the window
 ladder sends to the full-width fill (``pathwise_win_fullwidth``), and
 the rounds and (read, column) pairs of the modes-8/9 split search
-(``split_rounds``, ``split_pairs``), whose time is the ``split`` phase,
+(``split_rounds``, ``split_pairs``; on the card one round a chunk, S1's
+guided launch, with its pairs counted on the device), whose time is
+the ``split`` phase,
 and the (read, hard row) pairs whose column program (K12) ran inside
 the modes-6/7 fill (``gap67_hard_rows``).  A kernel that counts an
 event on the device adds to ``device_counter(name, device)``, so its

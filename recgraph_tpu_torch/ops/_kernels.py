@@ -84,9 +84,17 @@ _SIGNATURES = {
     # stream
     "rgt_pathwise_rev_fill": [_P] * 9 + [_I] * 11 + [_P, _LL, _P] + [_P],
     # fmax, farg, vf, rmax, rarg, vr, dfs, dfe, ids, fwe, rve, R, r,
-    # bidx, cols, K, I, Lp, edge0, col_max, edge_any, flat_edge,
-    # flat_plain, stream
-    "rgt_split_summary": [_P] * 11 + [_F] * 2 + [_P] * 2 + [_I] * 4 + [_P] * 4 + [_P],
+    # bidx, cols, K, I, Lp, edge0, capf, capr, col_max, edge_any,
+    # flat_edge, flat_plain, stream
+    "rgt_split_summary": [_P] * 11 + [_F] * 2 + [_P] * 2 + [_I] * 6 + [_P] * 4 + [_P],
+    # fmax, farg, vf, rmax, rarg, vr, dfs, dfe, ids, fwe, rve, R, r, ubs,
+    # order, ncand, init, B, I, Lp, edge0, C, capf, capr, state, cols,
+    # out, pairs, stream
+    "rgt_split_guided": [_P] * 11 + [_F] * 2 + [_P] * 4 + [_I] * 7 + [_P] * 4 + [_P],
+    # fmax, vf, rmax, vr, wf, wr, B, I, Lp, ub, stream
+    "rgt_split_bound": [_P] * 6 + [_I] * 3 + [_P] + [_P],
+    # capf, capr -> blocks of the guided kernel an SM holds, or -error
+    "rgt_split_guided_per_sm": [_I] * 2,
     # seq, table, rows, lanemask, blocks, blockmask, lanes, chain, B, n,
     # P, MB, Lp, o, e, semiglobal, scratch, Dm, X, Y, hard_ran, stream
     "rgt_gap67_fill": [_P] * 8 + [_I] * 8 + [_P] * 5 + [_P],

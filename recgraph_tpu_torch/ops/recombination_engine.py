@@ -10,12 +10,15 @@ Counterpart of ``recgraph_tpu/ops/recombination_engine.py``
   tensor launches the hand-written kernel (``cuda_pathwise_rev``, one
   kernel for every path count), a CPU tensor runs the plain version;
 - ``_path_argmax`` (``:191-201``), ``_SplitGeometry`` (``:425-475``) and
-  ``_column_ub`` (``:356-381``);
+  ``_column_ub`` (``:356-381``; on the card S1's bound entry computes
+  it);
 - ``col_summary_plain`` ports ``_col_summary_fn`` (``:478-594``) per
-  (read, column) pair; ``col_summary_best`` launches its kernel
-  (``cuda_split_summary``) on the card;
+  (read, column) pair; ``col_summary_best`` launches S1's per-pair
+  entry (``cuda_split_summary``) on the card;
 - ``_run_split_guided`` (``:597-765``), evaluating each read at its own
-  needed columns;
+  needed columns in host rounds; ``split_search_best``, the main path's
+  search: on the card S1's guided entry runs a chunk's whole search in
+  one launch, on the CPU ``_run_split_guided``;
 - ``_baseline`` (``:804-823``) and the walk starts (``:1269-1291``),
   batched;
 - ``walk_reverse`` ports ``_walk_reverse`` (``:984-1077``) as a
@@ -48,11 +51,11 @@ from .poa_engine import CHUNK_BYTES, D, L_DIR, LOW_D, NEG, U_DIR
 
 _I32 = torch.int32
 NEGF = -3.0e38
-# split search: the least columns evaluated per read and round; the
-# pairs a round fills on the card by giving each read that still needs
-# columns more of them (a round costs a host round trip, a pair 5-18 us
-# of S1 on an H100); pairs per kernel launch (the last launch of a round
-# is padded to this count)
+# the plain split search (``_run_split_guided``): the least columns
+# evaluated per read and round; the pairs a round fills on the card by
+# giving each read that still needs columns more of them (a round costs a
+# host round trip); pairs per launch of S1's per-pair entry (the last
+# launch of a round is padded to this count)
 ROUND_COLS = 8
 ROUND_PAIRS = {"cuda": 1024, "cpu": 0}
 PAIRS_PER_LAUNCH = 256
@@ -317,7 +320,7 @@ def _run_split_guided(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
     """Bound-guided EXACT split search (``_run_split_guided``, :597-765),
     each read at its own columns.
 
-    1. ub[b, j] for every column, O(I) per column (``_column_ub``);
+    1. ub[b, j] for every column, O(I) per column (``_split_ub``);
     2. in rounds, evaluate for every read up to max(``round_cols``,
        ``round_pairs`` / the reads with columns left) of its columns
        with ub + 0.5 >= max(M_b, baseline_b), M_b its largest col_max
@@ -334,13 +337,24 @@ def _run_split_guided(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
        argument the extra columns change nothing.
 
     Reads are searched ``sub_batch`` at a time (default: all).  Returns
-    numpy (best f32, taken, fen, rsn, fp, rp, col), each [B].
+    numpy (best f32, taken, fen, rsn, fp, rp, col), each [B].  The plain
+    version of S1's guided entry (``cuda_split_summary.split_guided_cuda``).
     """
+    ub, cols, done = _search_columns(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
+                                     multi_rec_cost, round_cols, round_pairs, sub_batch)
+    return _replay(inputs, cols, done, active_np, init_best)
+
+
+def _search_columns(inputs, geom, geom_t, active_np, init_best, base_rec_cost, multi_rec_cost,
+                    round_cols=ROUND_COLS, round_pairs=0, sub_batch=None):
+    """Steps 1-2 of :func:`_run_split_guided`: the masked ub f32[B, Lp],
+    the evaluated columns' summaries (col_max f32, edge_any bool,
+    flat_edge int64, flat_plain int64, each [B, Lp]) and which columns
+    were evaluated, bool[B, Lp] (numpy)."""
     fmax, farg, vf, rmax, rarg, vr = inputs
     B, I, Lp = fmax.shape
     dev = fmax.device
-    wf, wr = (torch.from_numpy(w).to(dev) for w in _sign_weights(geom, multi_rec_cost))
-    ub = _column_ub(fmax, vf, rmax, vr, wf, wr).cpu().numpy() - np.float32(base_rec_cost)
+    ub = _split_ub(inputs, geom, multi_rec_cost).cpu().numpy() - np.float32(base_rec_cost)
     ub = np.where(active_np, ub, -np.inf)
     ub[:, :1] = -np.inf
     ub[:, Lp - 1 :] = -np.inf
@@ -375,8 +389,16 @@ def _run_split_guided(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
             fe_all[bb_abs, cc], fp_all[bb_abs, cc] = fe, fp
             done[bb_abs, cc] = True
             np.maximum.at(M, bb, cm)
+    return ub, (cm_all, ea_all, fe_all, fp_all), done
 
-    # host replay of the take/tie chain over each read's evaluated columns
+
+def _replay(inputs, cols, done, active_np, init_best):
+    """Step 3 of :func:`_run_split_guided`: the take/tie chain over each
+    read's evaluated columns and the split's paths."""
+    farg, rarg = inputs[1], inputs[4]
+    B, I, _ = farg.shape
+    dev = farg.device
+    cm_all, ea_all, fe_all, fp_all = cols
     best = init_best.astype(np.float32).copy()
     edge_state = np.zeros(B, bool)
     taken = np.zeros(B, bool)
@@ -408,6 +430,56 @@ def _run_split_guided(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
     fen = np.where(taken, win_i + 1, 0).astype(np.int32)
     rsn = np.where(taken, win_k + 1, 0).astype(np.int32)
     return best, taken, fen, rsn, fpo, rpo, col
+
+
+def _split_ub(inputs, geom, multi_rec_cost):
+    """The column bound of the summaries, f32[B, Lp] on their device (R
+    not yet taken off): S1's bound entry for CUDA tensors,
+    ``_column_ub`` for CPU tensors."""
+    fmax, _, vf, rmax, _, vr = inputs
+    wf, wr = (torch.from_numpy(w).to(fmax.device) for w in _sign_weights(geom, multi_rec_cost))
+    if fmax.is_cuda:
+        return cuda_split_summary.column_ub_cuda(fmax, vf, rmax, vr, wf, wr, geom.paths)
+    return _column_ub(fmax, vf, rmax, vr, wf, wr)
+
+
+def split_unevaluated(ub, done, col_max, init_best):
+    """The guided search's invariant, as a count of the columns that
+    break it: int[B], the columns with ub + 0.5 >= the read's final
+    threshold max(M_b, init_best_b) (M_b the largest col_max over the
+    evaluated columns) that were not evaluated.  ``ub`` is the masked ub
+    (-inf where a column is never a candidate); numpy arrays [B, Lp] and
+    [B]."""
+    M = np.where(done, col_max, np.float32(-np.inf)).max(axis=1).astype(np.float32)
+    thresh = np.maximum(M, init_best.astype(np.float32))
+    return ((ub.astype(np.float32) + 0.5 >= thresh[:, None]) & ~done).sum(axis=1)
+
+
+def unpack_split(out):
+    """S1's guided rows int32[7, B] (numpy) as ``_run_split_guided``'s
+    (best f32, taken, fen, rsn, fp, rp, col)."""
+    return (out[0].view(np.float32).copy(), out[1] != 0, *(out[k].copy() for k in range(2, 7)))
+
+
+def split_search_best(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
+                      multi_rec_cost):
+    """The split search of a chunk: S1's bound and guided entries for
+    CUDA tensors (two launches, one copy of the seven rows to the host;
+    the pairs it evaluates go to the device counter ``split_pairs``), the
+    plain search for CPU tensors.  Returns numpy (best f32, taken, fen, rsn,
+    fp, rp, col), each [B]."""
+    dev = inputs[0].device
+    if dev.type == "cpu":
+        return _run_split_guided(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
+                                 multi_rec_cost, round_pairs=ROUND_PAIRS["cpu"])
+    if dev.type != "cuda":
+        raise ValueError(f"split search: no kernel for {dev.type} tensors")
+    ub = _split_ub(inputs, geom, multi_rec_cost)
+    out = cuda_split_summary.split_guided_cuda(
+        inputs, geom_t, ub, torch.from_numpy(np.ascontiguousarray(active_np)).to(dev),
+        torch.from_numpy(init_best.astype(np.float32)).to(dev), base_rec_cost, multi_rec_cost)
+    metrics.EVENTS["split_rounds"] += 1
+    return unpack_split(out.cpu().numpy())
 
 
 def _baseline(mode, finalcol, g):
@@ -669,9 +741,8 @@ def run_batch_walks(mode, sequences, g, rg, sm, base_rec_cost, multi_rec_cost, r
         jcol = np.arange(seq.shape[1])
         active = (jcol[None, :] >= oob[:, None]) & (jcol[None, :] < (Lnp - oob)[:, None])
         with phase("split"):
-            best, taken, fen, rsn, fp, rp, rec_col = _run_split_guided(
-                inputs, geom, geom_t, active, init_best, base_rec_cost, multi_rec_cost,
-                round_pairs=ROUND_PAIRS[device.type])
+            best, taken, fen, rsn, fp, rp, rec_col = split_search_best(
+                inputs, geom, geom_t, active, init_best, base_rec_cost, multi_rec_cost)
         del inputs
         fp_final = np.where(taken, fp, base_paths).astype(np.int32)
         rp_final = np.where(taken, rp, base_paths).astype(np.int32)

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K8, K10-K17 and S1 against their plain torch
-versions, on the card (K7 and K8 also stand for the TPU's path-tiled K9a
+"""The CUDA kernels K1-K8, K10-K17 and S1 (both entries) against their
+plain torch versions, on the card (K7 and K8 also stand for the TPU's path-tiled K9a
 and K9b).
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports
@@ -19,6 +19,7 @@ import os
 import random
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -451,6 +452,116 @@ def test_split_summary_kernel_matches_plain(cuda):
             ref = recombination_engine.col_summary_plain(*ins, geom_t, R, r, bidx, cols)
             _assert_equal(got, ref, (mode, R, r))
             assert bool((got[0] == recombination_engine.NEGF).all()) == (ins is not inputs)
+
+
+# (R, r, band width) of the split search: the CLI's, -R 10 -r 2 -B 0.5, ties
+SPLIT_COSTS = {"default": (4, 0.1, 1.0), "R10_r2_B05": (10, 2.0, 0.5), "ties": (0, 0.0, 1.0)}
+
+
+def _guided_vs_plain(g, rg, reads, mode, device, costs, dead=False, runs=((1, None), (4, None),
+                                                                          (None, None))):
+    """S1's guided entry against ``_run_split_guided`` on the same card
+    inputs (K7/K8 planes of ``reads``), after its bound entry against
+    ``_column_ub`` bit for bit: the seven outputs bit for bit at each
+    (blocks a read, reverse tile) of ``runs``, and the invariant
+    (every column with ub + 0.5 >= the read's final threshold was
+    evaluated).  Returns the plain search's outputs."""
+    dg, dgr = path_device_graph(g, device), rev_device_graph(rg, device)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(device)
+    seq, L = encode_reads(reads, device=device)
+    Af = pathwise_engine.fill_pathwise_best(dg, table, seq, mode == 9)
+    Ar = recombination_engine.fill_pathwise_rev_best(dgr, table, seq, L, mode == 8)
+    finalcol = pathwise_engine._final_column(Af, L).cpu().numpy()
+    init_best, _ = recombination_engine._baseline(mode, finalcol, g)
+    inputs = list(recombination_engine.split_inputs(Af, Ar, dg.paths_on))
+    del Af, Ar
+    if dead:   # no reverse summary on its path: no valid pair anywhere
+        inputs[5] = torch.zeros_like(inputs[5])
+    R, r, rbw = costs
+    Lnp = L.cpu().numpy()
+    oob = np.maximum((Lnp * (1.0 - rbw) / 2.0).astype(np.int64), 1)
+    jcol = np.arange(seq.shape[1])
+    active = (jcol[None, :] >= oob[:, None]) & (jcol[None, :] < (Lnp - oob)[:, None])
+    geom = recombination_engine._SplitGeometry(g, rg)
+    geom_t = geom.tensors(device)
+    ref = recombination_engine._run_split_guided(inputs, geom, geom_t, active, init_best, R, r)
+    ub = recombination_engine._split_ub(inputs, geom, r)   # S1's bound entry
+    wf, wr = (torch.from_numpy(w).to(device)
+              for w in recombination_engine._sign_weights(geom, r))
+    ref_ub = recombination_engine._column_ub(inputs[0], inputs[2], inputs[3], inputs[5], wf, wr)
+    assert ub.dtype == ref_ub.dtype and ub.cpu().numpy().tobytes() == ref_ub.cpu().numpy().tobytes()
+    for blocks, rtile in runs:
+        out, st = cuda_split_summary.split_guided_cuda(
+            inputs, geom_t, ub, torch.from_numpy(active).to(device),
+            torch.from_numpy(init_best.astype(np.float32)).to(device), R, r, blocks=blocks,
+            rtile=rtile, with_state=True)
+        got = recombination_engine.unpack_split(out.cpu().numpy())
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (mode, costs, blocks, k)
+        bad = recombination_engine.split_unevaluated(
+            st["ub"].cpu().numpy(), st["done"].cpu().numpy(), st["col_max"].cpu().numpy(),
+            init_best)
+        assert not bad.any(), (mode, costs, blocks, bad)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [8, 9])
+def test_split_guided_matches_plain_search(cuda, mode):
+    """The guided entry on 6 example reads (every one splits in mode 8,
+    two in mode 9) with the three cost sets, at 1 and 4 blocks a read,
+    the wrapper's count and reverse rows in tiles of 512; on dead reverse
+    summaries; and through the dispatcher, which launches the bound and
+    guided entries once each, counts one round and its pairs on the
+    device."""
+    seqs, _ = fasta.get_sequences(EXAMPLE[0])
+    g = PathGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+    rg = g.reverse()
+    reads = seqs[:4] + [seqs[16], seqs[50]]
+    refs = {name: _guided_vs_plain(g, rg, reads, mode, cuda, costs,
+                                   runs=((1, None), (4, None), (None, None), (4, 512)))
+            for name, costs in SPLIT_COSTS.items()}
+    assert refs["default"][1].sum() == (6 if mode == 8 else 2)
+    assert not _guided_vs_plain(g, rg, reads, mode, cuda, SPLIT_COSTS["default"], dead=True)[1].any()
+
+    dg, dgr = path_device_graph(g, cuda), rev_device_graph(rg, cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(cuda)
+    seq, L = encode_reads(reads, device=cuda)
+    inputs = recombination_engine.split_inputs(
+        pathwise_engine.fill_pathwise_best(dg, table, seq, mode == 9),
+        recombination_engine.fill_pathwise_rev_best(dgr, table, seq, L, mode == 8), dg.paths_on)
+    geom = recombination_engine._SplitGeometry(g, rg)
+    active = np.ones(tuple(seq.shape), bool)
+    init_best = np.full(len(reads), -1e9, np.float32)
+    ref = recombination_engine._run_split_guided(inputs, geom, geom.tensors(cuda), active,
+                                                 init_best, 4, 0.1)
+    metrics.reset_phases()
+    got = recombination_engine.split_search_best(inputs, geom, geom.tensors(cuda), active,
+                                                 init_best, 4, 0.1)
+    assert all(a.dtype == b.dtype and a.tobytes() == b.tobytes() for a, b in zip(got, ref))
+    assert metrics.LAUNCHES == {cuda_split_summary.BOUND: 1, cuda_split_summary.GUIDED: 1}
+    metrics.flush_device_counters()
+    assert metrics.EVENTS["split_rounds"] == 1 and metrics.EVENTS["split_pairs"] >= len(reads)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_split_summary.split_guided_cuda(inputs, geom.tensors(cuda), inputs[0],
+                                             torch.ones_like(inputs[2][:, 0]),
+                                             torch.zeros(len(reads), device=cuda), 4, 0.1)
+
+
+@pytest.mark.cuda
+def test_split_guided_long_read(cuda, tmp_path):
+    """The guided entry on one ~1.2 kb read of a long-read graph in
+    modes 8 and 9 (hundreds of columns a read, many blocks a read)."""
+    from make_synthetic import make
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        make(str(tmp_path), n_back=600, n_reads=1, seed=11)
+    gfa_path = str(tmp_path / "graph.gfa")
+    g = PathGraph.from_gfa(gfa.parse_gfa(gfa_path))
+    reads = _long_reads(gfa_path, 1, 7)
+    for mode in (8, 9):
+        _guided_vs_plain(g, g.reverse(), reads, mode, cuda, SPLIT_COSTS["default"],
+                         runs=((1, None), (None, None), (None, 512)))
 
 
 @pytest.mark.cuda

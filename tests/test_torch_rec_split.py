@@ -4,7 +4,9 @@
 ``_col_summary_fn``), ``_baseline`` and the bound-guided search
 ``_run_split_guided``, which the port runs per read and which must give
 the same (best, taken, fen, rsn, fp, rp, col) at any round width, pairs
-per round and sub-batch.
+per round and sub-batch.  What the wrapper of S1's guided entry computes
+in torch (its order-preserving f32 key, the column order) and the
+invariant the smoke checks on the card are held here too.
 
 Inputs: the score planes of 6 example reads (every one takes a split in
 mode 8, two in mode 9) from the port's plain fills
@@ -23,7 +25,9 @@ from recgraph_tpu.io import gfa as jax_gfa
 from recgraph_tpu.ops import recombination_engine as jax_rec
 from recgraph_tpu_torch.graph.pathgraph import PathGraph
 from recgraph_tpu_torch.io import fasta, gfa
-from recgraph_tpu_torch.ops import encode, pathwise_engine, recombination_engine as rec
+from recgraph_tpu_torch.ops import (
+    cuda_split_summary, encode, pathwise_engine, recombination_engine as rec,
+)
 from recgraph_tpu_torch.scoring import ScoreMatrix
 
 torch.set_num_threads(1)
@@ -147,3 +151,65 @@ def test_baseline_and_guided_split_match_jax(setup, mode, costs):
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a, b)
     assert ref[1].any()                   # some read takes a split
+
+
+def test_guided_key_orders_like_f32():
+    """S1's guided entry raises M_b with an atomicMax on this int key:
+    it orders negative and positive values, NEGF, -inf and ties as f32
+    does, and is its own inverse on the bits."""
+    vals = np.array([-np.inf, np.float32(rec.NEGF), -1e30, -7.5, -7.5, -1.0, -1e-30, -0.0, 0.0,
+                     1e-30, 0.25, 3.0, 3.0, 1e30, np.inf], np.float32)
+    keys = cuda_split_summary.f32_key(torch.from_numpy(vals)).numpy()
+    assert keys.dtype == np.int32
+    order = np.argsort(keys, kind="stable")
+    assert (np.diff(vals[order]) >= 0).all() and (np.diff(keys) >= 0).all()
+    assert keys[3] == keys[4] and keys[11] == keys[12] and keys[7] < keys[8]
+    assert cuda_split_summary.KEY_NEG_INF == keys[0] and keys[0] < keys[1]
+    back = cuda_split_summary.f32_key(torch.from_numpy(keys).view(torch.float32))
+    np.testing.assert_array_equal(back.numpy().view(np.float32), vals)
+
+
+def test_guided_column_order_with_ties():
+    """The guided entry's columns: ub - R in f32 as the plain search
+    computes it, -inf where masked (inactive, column 0, columns >= Lp -
+    1), in falling order with ties to the lower column, the unmasked
+    ones first and counted."""
+    rng = np.random.default_rng(5)
+    ub = rng.integers(-3, 3, size=(4, 12)).astype(np.float32) * np.float32(0.5)
+    ub[1] = 1.0                                        # every column ties
+    ub[2, 3] = -np.inf                                 # an overflowed bound
+    active = rng.random((4, 12)) < 0.8
+    active[3] = False                                  # no column
+    u = cuda_split_summary.masked_ub(torch.from_numpy(ub), torch.from_numpy(active), 4)
+    plain = np.where(active, ub - np.float32(4), -np.inf)
+    plain[:, :1] = plain[:, 11:] = -np.inf
+    np.testing.assert_array_equal(u.numpy(), plain.astype(np.float32))
+    ubs, order, ncand = cuda_split_summary.column_order(u)
+    want = np.argsort(-plain, axis=1, kind="stable")
+    np.testing.assert_array_equal(order.numpy(), want)
+    np.testing.assert_array_equal(ubs.numpy(), np.take_along_axis(plain, want, 1))
+    np.testing.assert_array_equal(ncand.numpy(), (plain > -np.inf).sum(1))
+    assert list(order[1, : ncand[1]].numpy()) == sorted(order[1, : ncand[1]].numpy())
+    assert ncand[3] == 0
+
+
+def test_guided_invariant_on_plain_search(setup):
+    """The invariant the smoke checks on the card: every column with ub +
+    0.5 >= the read's final threshold was evaluated.  It holds for the
+    plain search's evaluated columns in modes 8 and 9, and a needed
+    column left out breaks it."""
+    g, rg, _, _, _ = setup
+    geom = rec._SplitGeometry(g, rg)
+    for mode in (8, 9):
+        Af, Ar, seq, L, finalcol = planes(setup, mode)
+        init_best, _ = rec._baseline(mode, finalcol, g)
+        active = np.ones(seq.shape, bool)
+        inputs = rec.split_inputs(Af, Ar, torch.from_numpy(g.paths_nodes))
+        ub, cols, done = rec._search_columns(inputs, geom, geom.tensors("cpu"), active,
+                                             init_best, 4, 0.1)
+        assert done.any() and not rec.split_unevaluated(ub, done, cols[0], init_best).any()
+        M = np.where(done, cols[0], -np.inf).max(axis=1).astype(np.float32)
+        needed = done & (ub + np.float32(0.5) >= np.maximum(M, init_best)[:, None])
+        b, j = np.argwhere(needed & (cols[0] < M[:, None]))[0]   # M_b stays as it was
+        done[b, j] = False
+        assert rec.split_unevaluated(ub, done, cols[0], init_best)[b] == 1
