@@ -45,7 +45,11 @@ Phases, in order; any failure raises and the script exits nonzero:
             recorded them; the leading reads of that corpus), with kernel
             and plain times (CUDA events) and the bound at each; then on
             the example corpus, three seeded random graphs, HOXD70 (K2,
-            K5, K7, K8), (o, e) = (+1, -2) (K4, K5), K1 on 64 long reads at
+            K5, K7, K8), (o, e) = (+1, -2) (K4, K5), K5 at the edges of
+            its layout (1-bp reads, widths of 151, 168, 232 and 328, forced
+            layouts, 40 predecessor slots, a 4,900-bp read), K10 on a read
+            shorter than W, at W = 34 and with its scratch in device
+            memory, K1 on 64 long reads at
             full width, K3/K6/K10 at W = 32, where reads overflow, K7 in
             mode 5 and K8 in mode 9, on a 126-path graph and past the JAX
             engine's packed-chain gate, K8 on the fragment graphs whose
@@ -281,7 +285,10 @@ def kernel_cases(example, long, workdir):
     tiles), a 130-path and a 33-path graph, and a node with 40
     predecessors, each on a path of its own (``fuzz.fan_gfa``); for K7
     and K8 also random graphs of 1 and 7 paths and one 41,000-bp read on
-    the 40-predecessor graph."""
+    the 40-predecessor graph; for K5 1-bp reads on the example graph, the
+    40-predecessor graph as a POA graph and a 4,900-bp read (two long
+    reads joined) beside a long read; for K10 the 8 long reads and a
+    21-bp one."""
     from recgraph_tpu_torch import fuzz
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.graph.poagraph import PoaGraph
@@ -305,6 +312,15 @@ def kernel_cases(example, long, workdir):
              ("path", "fan40"): (PathGraph.from_gfa(fan),
                                  [fuzz.random_read(fan_rng, fan) for _ in range(4)]),
              ("path", "long41"): (PathGraph.from_gfa(fan), [long41])}
+    # K5: 1-bp reads, a start row of 40 predecessor slots, and a 4,900-bp
+    # read (the full form in two windows) beside a 2,440-bp one
+    l2 = load_corpus(*long, 2)[1]
+    cases[("poa", "bp1")] = (cases[("poa", "example")][0], ["$A", "$C", "$G", "$T", "$N"])
+    cases[("poa", "fan40")] = (PoaGraph.from_gfa(fan), cases[("path", "fan40")][1])
+    cases[("poa", "long5k")] = (cases[("poa", "long64")][0], [l2[0] + l2[1][1:], l2[1]])
+    # K10: a read shorter than the window beside the long reads
+    cases[("path", "long8s")] = (cases[("path", "long8")][0],
+                                 cases[("path", "long8")][1] + ["$" + "ACGT" * 5])
     for name, seed, paths in (("p1", 61, 1), ("p7", 67, 7)):
         rng = random.Random(seed)
         gf = fuzz.random_gfa(rng, n_nodes=20 + 10 * (paths > 1), n_paths=paths, cover_all=True)
@@ -324,7 +340,8 @@ def kernel_cases(example, long, workdir):
 
 
 def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None, rec=(4, 0.1),
-         dead=False, plain=True, dtype="int32", extra=False, cluster=None, width=None):
+         dead=False, plain=True, dtype="int32", extra=False, cluster=None, width=None,
+         layout=None):
     """One exactness case: the named graph and reads, the scoring table,
     the window width (S1: the pairs; K12: -1 for the hard row with the
     most blocks), the affine penalties, mode 5, 7 or 9 (``semi``), the
@@ -334,10 +351,12 @@ def case(name, matrix="none", W=None, oe=(O, E), semi=False, pad_to=None, rec=(4
     the leading reads ("cpu"), or the scalar oracle on a CPU worker for
     read 0 ("oracle"), K15's element type, whether the spec's
     ``extra`` check runs (the most launched main-path shape), for K7/K8
-    the blocks a read (else the wrapper's choice), and a read width to
-    cut the encoded reads to (one not a multiple of 4)."""
+    the blocks a read (else the wrapper's choice), a read width to cut
+    the encoded reads to (one not a multiple of 4), and for K5 a launch
+    layout to force (``cuda_poa_gap_local.Plan``)."""
     return dict(name=name, matrix=matrix, W=W, oe=oe, semi=semi, pad_to=pad_to, rec=rec,
-                dead=dead, plain=plain, dtype=dtype, extra=extra, cluster=cluster, width=width)
+                dead=dead, plain=plain, dtype=dtype, extra=extra, cluster=cluster, width=width,
+                layout=layout)
 
 
 # K1's and K2's plain fills on each input, shared with the plain versions
@@ -495,6 +514,18 @@ def kernel_specs():
              *(case("p7", cluster=k) for k in (1, 2, 4)), case("p126", pad_to=256, cluster=1),
              case("example", width=151), case("example", semi=True, width=151),
              case("long41"), case("long41", semi=True)]
+    # K5 at the edges of its layout (cuda_poa_gap_local.plan): 1-bp reads;
+    # widths of 151 (no 16-byte stores), 168, 232 (just past one warp a
+    # read) and 328 (past two warp segments; reads pad to 8 columns); 2
+    # warps a read and the full form forced; 40 predecessor slots; a
+    # 4,900-bp read (the full form in two windows)
+    GP = cuda_poa_gap_local.Plan
+    gl_edges = [case("bp1"), case("bp1", oe=(1, -2)), case("example", width=151),
+                case("example", pad_to=161),
+                case("example", pad_to=225), case("example", "HOXD70", pad_to=321, oe=(1, -2)),
+                case("example", layout=GP(2, 5, False)),
+                case("example", oe=(1, -2), layout=GP(16, 9, True)), case("fan40"),
+                case("fan40", "HOXD70", oe=(1, -2), layout=GP(2, 5, False)), case("long5k")]
     gap = [case("tile")] + [case(c, matrix=m, oe=oe, semi=semi) for semi in (False, True)
                             for c, m, oe in (
         ("example", "none", (O, E)), ("p130", "none", (O, E)), ("p33", "none", (O, E)),
@@ -537,7 +568,7 @@ def kernel_specs():
         dict(id="K5", mod=cuda_poa_gap_local, kern=cuda_poa_gap_local.fill_gap_local_cuda,
              plain=poa_gap_engine.fill_gap_local_plain, graph="poa", ops=(60, 8),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.o, x.e),
-             cases=poa + [case("example", "HOXD70"), case("example", oe=(1, -2))]),
+             cases=poa + [case("example", "HOXD70"), case("example", oe=(1, -2)), *gl_edges]),
         dict(id="K6", mod=cuda_poa_gap_global_win,
              kern=cuda_poa_gap_global_win.fill_gap_global_win_cuda,
              plain=poa_gap_engine.fill_gap_global_windowed_plain, graph="poa", ops=(62, 10),
@@ -557,7 +588,13 @@ def kernel_specs():
              plain=pathwise_window.fill_pathwise_win_plain, graph="path", ops=(30, 0),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.W, pathwise_window.rmin_tensor(x.dg)),
              note=guard, cases=[case("long8", W=32), case("long8", W=1024),
-                                case("example", W=32), case("example", "HOXD70", W=64)]),
+                                case("example", W=32), case("example", "HOXD70", W=64),
+                                # its layout's edges (cuda_pathwise_win.plan): reads
+                                # that fail the guard beside a read shorter than W,
+                                # W not a multiple of 4, rows of up to 9 groups, the
+                                # per-read scratch in device memory
+                                case("long8s", W=32), case("long8s", W=256),
+                                case("example", W=34), case("long41", W=1024)]),
         dict(id="K8", mod=cuda_pathwise_rev,
              kern=cuda_pathwise_rev.fill_pathwise_rev_cuda,
              plain=recombination_engine.fill_pathwise_rev_plain, graph="rev", ops=(16, 0),
@@ -808,7 +845,10 @@ def check_case(spec, label, g, reads, c, timed=False):
     if kind == "hard":
         hard_case(x, c)
     args = spec["args"](x)
-    got = spec["kern"](*args, **({} if c["cluster"] is None else {"cluster": c["cluster"]}))
+    kw = {} if c["cluster"] is None else {"cluster": c["cluster"]}
+    if c["layout"] is not None:
+        kw["layout"] = c["layout"]
+    got = spec["kern"](*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
     B, Lp = seq.shape
@@ -834,6 +874,10 @@ def check_case(spec, label, g, reads, c, timed=False):
                     + (", no valid pair" if c["dead"] else ""))
     if c["cluster"] is not None:
         how += f", {c['cluster']} blocks a read"
+    if c["layout"] is not None:
+        lay = c["layout"]
+        how += (f", {lay.warps} warps x {lay.cw} columns a lane"
+                + (", full form" if lay.full else ""))
     err = compare(f"{spec['id']} {label} {c['matrix']} {how} W={x.W}", got, ref)
     note = spec["note"](x, got) if "note" in spec else ""
     if c["extra"] and "extra" in spec:

@@ -11,6 +11,13 @@ its kernels) and times with CUDA events, one warm-up first:
   the first 3,047 reads of the stretch corpus (``tools/make_synthetic.
   make(d, 700, 10000, 42)``, n = 2,249, Lp = 152): the mean of 3
   launches, repeated 5 times;
+- K5 (``cuda_poa_gap_local.fill_gap_local_cuda``, mode 3 with the CLI's
+  o = -4, e = -2) on the first 1,241 stretch reads and on the first 46
+  reads of the long corpus (``chip_smoke.make_long``, n = 3,798, Lp =
+  2,440, full width), and K10 (``cuda_pathwise_win.fill_pathwise_win_cuda``,
+  W = 256) on the first 110 and 72 long reads (P = 10): the smoke's
+  launch shapes; the mean of 3 launches, repeated 3 times, and a
+  checksum of the outputs (equal across checkouts);
 - K7 (``cuda_pathwise.fill_pathwise_cuda``) and K8
   (``cuda_pathwise_rev.fill_pathwise_rev_cuda``) at the pathwise launch
   shapes of ``chip_smoke.py``: 348 stretch reads (P = 9; K7 in modes 4
@@ -96,7 +103,28 @@ def timed(fn, reps, runs):
 
 for name, fn in fills.items():
     out[name] = timed(fn, 3, 5)
-del dg, seq, L, bta, fills
+
+
+def checksum(res):
+    """A position-weighted int64 sum of every output, on the card."""
+    tot = 0
+    for t in res:
+        flat = t.reshape(-1)
+        for a in range(0, flat.numel(), 1 << 26):
+            x = flat[a:a + (1 << 26)].to(torch.int64)
+            w = torch.arange(a, a + x.numel(), device=x.device, dtype=torch.int64) % 1000003 + 1
+            tot = (tot * 31 + int((x * w).sum())) % (1 << 61)
+    return tot
+
+
+from recgraph_tpu_torch.ops import cuda_poa_gap_local, cuda_pathwise_win
+
+seq5, L5 = seq[:1241].contiguous(), L[:1241].contiguous()
+k5 = lambda: cuda_poa_gap_local.fill_gap_local_cuda(dg, table, seq5, L5, -4, -2)
+out["K5 stretch 1241"] = timed(k5, 3, 3)
+out["K5 stretch 1241 checksum"] = checksum(k5())
+del dg, seq, L, bta, fills, seq5, L5
+torch.cuda.empty_cache()
 
 import chip_smoke
 from recgraph_tpu_torch.graph.pathgraph import PathGraph
@@ -110,6 +138,33 @@ d2 = tempfile.mkdtemp(dir=os.environ.get("AB_WORKDIR"))
 with contextlib.redirect_stdout(io.StringIO()):
     make_synthetic.make(d2, 700, 512, 42, 128)
 long_fa, long_gfa = chip_smoke.make_long(tempfile.mkdtemp(dir=os.environ.get("AB_WORKDIR")))
+
+# K5 on 46 long reads at full width, K10 on 110 and 72 long reads at W 256
+long_reads = fasta.get_sequences(long_fa)[0]
+dg = poa_device_graph(PoaGraph.from_gfa(gfa.parse_gfa(long_gfa)), "cuda")
+seq, L = encode_reads(long_reads[:46], pad_to=2440, device="cuda")
+k5 = lambda: cuda_poa_gap_local.fill_gap_local_cuda(dg, table, seq, L, -4, -2)
+out["K5 long 46"] = timed(k5, 3, 3)
+out["K5 long 46 checksum"] = checksum(k5())
+out["K5 long 46 shape"] = [seq.shape[0], dg.n, seq.shape[1]]
+del dg, seq, L
+torch.cuda.empty_cache()
+from recgraph_tpu_torch.graph.pathgraph import PathGraph
+from recgraph_tpu_torch.ops import pathwise_window
+from recgraph_tpu_torch.ops.encode import path_device_graph
+
+dg = path_device_graph(PathGraph.from_gfa(gfa.parse_gfa(long_gfa)), "cuda")
+rmin = pathwise_window.rmin_tensor(dg)
+seq_all, L_all = encode_reads(long_reads, pad_to=2440, device="cuda")
+for B in (110, 72):
+    seq, L = seq_all[:B].contiguous(), L_all[:B].contiguous()
+    k10 = lambda: cuda_pathwise_win.fill_pathwise_win_cuda(dg, table, seq, L, 256, rmin)
+    out[f"K10 long {B} W256"] = timed(k10, 3, 3)
+    out[f"K10 long {B} W256 checksum"] = checksum(k10())
+    out[f"K10 long {B} W256 shape"] = [B, dg.n, seq.shape[1], dg.paths_number]
+    del seq, L
+    torch.cuda.empty_cache()
+del dg, seq_all, L_all
 
 # K7 (modes 4/5) and K8 (mode 8) at the smoke's pathwise launch shapes
 for tag, gfa_path, fa, B, kerns in (

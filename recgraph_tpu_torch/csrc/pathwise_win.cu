@@ -1,4 +1,4 @@
-// Mode-4 windowed long-read pathwise fill for Hopper.
+// Mode-4 windowed long-read pathwise fill for Hopper (K10).
 //
 // Replaces the TPU kernel recgraph_tpu/ops/pallas_pathwise_win.py:409
 // fill_pathwise_win_pallas, but computes what the XLA engine
@@ -13,21 +13,42 @@
 // value - smax * column over the predecessor cells a row's window
 // strands, each row's right-edge cell and row 0's.
 //
-// Design (pathwise_common.cuh): one thread block per read, a row's W
-// lanes in tiles of blockDim.x.  Per row: a block min/max over the
-// on-lanes' predecessor best positions places the window; one block
-// scan gives the window-local gap sums Gw; each group's rep chain is two
-// block scans over the realigned predecessor window (NEG outside it);
-// then every (path, lane) cell replays its group's moves independently,
-// with the replayed value clamped to V - Gw >= -2^16 as the XLA engine's
-// packed chain clamps it, and the replay restarting at the window's first
-// lane.  The row's rightmost best lane is a block max over (value, lane)
-// keys.  Predecessor rows, window starts and best positions live in
-// device memory (the row history; unbounded predecessor spans).
+// Design: the one of K7/K8 (pathwise_common.cuh), with the window.
+// - One read is one thread block (cuda_pathwise_win.plan).  Per read, in
+//   shared memory where it fits (else in device memory): the read's gap
+//   prefix sums and codes, every row's window start and best position,
+//   the row's (src, add) table and floor, the lanes' rows i-1 and i, and
+//   the staged source rows of lanes whose pred row is not i-1.  The row
+//   tables come from one packed array, one load a lane, a row ahead.
+// - Per row, every warp places the window itself: row i-1's best
+//   position from one shared 64-bit key (each warp folded its best
+//   (value, lane) into it with atomicMax), then a warp min/max over the
+//   groups' predecessor best positions.
+// - Each group's rep chain runs on up to 4 warps from the block's last
+//   warp down, 2 columns a lane (windows of 256 for wider W), reading
+//   the rep's row i-1 from shared memory, with the realignment shift = ws - ws[pred] folded in.  With x[k] the
+//   rep's candidate minus Gw[k], a column moves D or U (or restarts)
+//   iff x[k] reaches the prefix maximum, so one max-scan over (x,
+//   position) keys gives every column its nearest such column k'; the
+//   table reads k''s candidates again and writes src already shifted
+//   into the predecessor's window (-1 where it falls outside), add = the
+//   move's addend + Gw[k] - Gw[k'], and floor[k] = Gw[k] - 2^16 (the
+//   clamp of the XLA engine's packed chain):
 //
-// What bounds it on this card: the bytes of Aw it writes plus the two
-// predecessor cells each cell reads; one block is latency-bound on its
-// per-row barriers.
+//       row_q[k] = src[k] < 0 ? floor[k] : max(Aq[src[k]] + add[k], floor[k]).
+//
+//   Its plain form is pathwise_window.win_replay_table_plain.
+// - While the chains run, cp.async stages the other lanes' source rows;
+//   after the row's first barrier the replay reads only shared memory, 4
+//   cells a thread with 16-byte stores, and folds the stranded
+//   predecessor cells and the right-edge cell into the exit bound R.  A
+//   row costs two barriers: after the chains and after the replay.
+//
+// What bounds it on this card: the bytes of Aw it writes (4 a cell) set
+// the bound (1.28 ms for 110 long reads at W 256); the kernel runs at
+// ~12 % of it (PERF.md), held by a row's latency: the rows of a read are
+// sequential, and a row's group chains and its window placement run on
+// a few warps while the other warps wait at the row's first barrier.
 //
 // The kernel allocates nothing, does not synchronise with the host and
 // runs on the stream it is given.
@@ -38,208 +59,421 @@ namespace rgt {
 
 constexpr int WIN_OFF = 1 << 16;   // pathwise_window.OFF
 constexpr int FAR = 1 << 28;       // the min over no on-lane
+constexpr int PWW_CW = 2;          // chain columns a lane
+constexpr int PWW_CHAIN_WARPS = 4; // warps a group's chain (fewer when the row has many groups)
+constexpr int PWW_THREADS = 512;
 
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-pathwise_win_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
-                    const int* __restrict__ table, const int* __restrict__ codes,
-                    const int* __restrict__ grep, const int* __restrict__ gpred,
-                    const int* __restrict__ pslot, const int* __restrict__ rmin,
-                    int n, int P, int Lp, int Gd, int W, int* gw_s, int* kidx_s,
-                    int* flag_s, int* rowv_s, int* bsp_s, int* Aw, int* wss,
-                    int* bound) {
+struct PwwArgs {
+  const int* seq;     // [B, Lp] '$'-prefixed read codes
+  const int* L;       // [B]
+  const int* table;   // [7, 7]
+  const int* meta;    // [n, 1 + 2 Gd + P] the row tables (cuda_pathwise_win.row_tables)
+  const int* rmin;    // [n]
+  int n, P, Lp, Gd, W;
+  int smem_form;      // the per-read scratch in shared memory
+  unsigned char* scratch;  // device scratch, `stride` bytes a block
+  long long stride;
+  int* Aw;            // [B, P, n, W]
+  int* ws;            // [B, n]
+  int* bound;         // [B]
+};
+
+__host__ __device__ inline int pww_a4(int x) { return (x + 3) & ~3; }
+
+// The per-read scratch, in shared or device memory.
+struct PwwScratch {
+  int* Gab;             // [LpA] the read's gap prefix sums
+  int* wsr;             // [nA] each row's window start
+  int* bspr;            // [nA] each row's best position
+  int* floor;           // [WA] Gw[k] - WIN_OFF
+  int* src;             // [Gd, WA]
+  int* add;             // [Gd, WA]
+  int* pred;            // [P, WA] each lane's source row when it is not row i-1, staged
+  int* last;            // [2, P, WA] the lanes' rows i-1 and i (by row parity)
+  unsigned char* code;  // [LpA] read codes
+};
+
+// The sums of sm(seq[t], '-') over t = 0 .. j, with t past the read
+// clamped to its last column; Gw[k] of the window at ws is
+// gsum(ws + k) - gsum(ws - 1).
+__device__ __forceinline__ int gsum(const int* Gab, int Lp, int glast, int j) {
+  return j < 0 ? 0 : Gab[min(j, Lp - 1)] + max(j - Lp + 1, 0) * glast;
+}
+
+// One group's rep chain on w warps (wi: this warp's index among them,
+// named barrier 1 + g) over the window, in windows of 32 w CW columns:
+// the group's (src, add) table (and, for `floor_too`, the row's floor).
+// With x[k] = A~[k] - Gw[k] (A~ the rep's D/U candidate, U at the read's
+// column 0), the rep's row is Gw[k] + max_{j <= k} x[j], and a column
+// moves D or U (or restarts) iff x[k] reaches that maximum: the nearest
+// such column k' <= k is the last position of the prefix maximum.  So
+// one max-scan over (x, position) keys gives k' for every column (warp
+// shuffles, carried across the group's warps through s_xt, by window
+// parity, and across windows in registers); the table then reads k''s
+// D and U candidates again (D iff d >= u there, not at the read's
+// column 0).  The window's first lane is its own k'.
+template <int CW>
+__device__ __forceinline__ void pww_chain(const PwwScratch& s, int g, int w, int wi,
+                                          const int* Ar, int W, int WA, int Lp, int glast, int ws,
+                                          int shift, int gap, const int* sub_row, bool floor_too,
+                                          long long (*s_xt)[32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, w0 = warp - wi;
+  int* xs = s.src + (size_t)g * WA;
+  int* ds = s.add + (size_t)g * WA;
+  auto al = [&](int idx) { return idx >= 0 && idx < W ? Ar[idx] : NEG; };
+  auto sub_at = [&](int k) { return sub_row[s.code[min(ws + k, Lp - 1)]]; };
+  auto gs = [&](int k) { return gsum(s.Gab, Lp, glast, ws + k); };   // Gw[k] + gsum(ws - 1)
+  const int gbase = gsum(s.Gab, Lp, glast, ws - 1);
+  long long pc = LLONG_MIN;   // the prefix max key before the window
+  for (int base = 0, par = 0; base < W; base += 32 * w * CW, par ^= 1) {
+    const int k0 = base + (wi * 32 + lane) * CW;
+    long long key[CW];
+    int gk[CW];
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int k = k0 + c;
+      gk[c] = gs(k);
+      const int d = al(shift + k - 1) + sub_at(k), u = al(shift + k) + gap;
+      const int a = ws + k == 0 ? u : max(d, u);
+      key[c] = k < W ? make_key(a - (gk[c] - gbase), (unsigned)k) : LLONG_MIN;
+    }
+    long long m = key[0];
+#pragma unroll
+    for (int c = 1; c < CW; ++c) m = max(m, key[c]);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(FULL, m, o);
+      if (lane >= o) m = max(m, y);
+    }
+    long long p = __shfl_up_sync(FULL, m, 1);
+    if (lane == 0) p = LLONG_MIN;
+    long long wtot = __shfl_sync(FULL, m, 31);
+    if (w > 1) {
+      if (lane == 31) s_xt[par][warp] = m;
+      group_sync(g, w);
+      wtot = LLONG_MIN;
+      for (int v = 0; v < w; ++v) {
+        const long long t = s_xt[par][w0 + v];
+        if (v < wi) p = max(p, t);
+        wtot = max(wtot, t);
+      }
+    }
+    p = max(p, pc);
+    pc = max(pc, wtot);
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int k = k0 + c;
+      p = max(p, key[c]);
+      if (k < W) {
+        const int kk = (int)key_tie(p);   // the nearest column <= k that moved D, U or restarted
+        const int sk = sub_at(kk);
+        const bool formD = ws + kk != 0 && al(shift + kk - 1) + sk >= al(shift + kk) + gap;
+        const int idx = shift + kk - (formD ? 1 : 0);
+        xs[k] = idx >= 0 && idx < W ? idx : -1;
+        ds[k] = (formD ? sk : gap) + gk[c] - gs(kk);
+        if (floor_too) s.floor[k] = gk[c] - gbase - WIN_OFF;
+      }
+    }
+  }
+}
+
+// The cells of replay item t (V columns from k0 of lane ql)
+// into row i of Aw; folds the item's stranded source cells and the
+// right-edge cell into R and its on-path cells into the (value, lane)
+// key (rightmost of the best).
+template <int V>
+__device__ __forceinline__ void pww_replay_item(const PwwScratch& s, const PwMeta& mt,
+                                                const PwItem& t, int* Ab, size_t plane, int W,
+                                                int WA, int i, int ws, int L, int smax,
+                                                int ws_prev, const int* prev, int* cur, int& R,
+                                                int& kv, int& kc) {
+  const int g = mt.slot(t.ql);
+  Cells<V> o;
+  if (g < 0) {
+#pragma unroll
+    for (int c = 0; c < V; ++c) o.v[c] = ws + t.j0 + c < L ? 0 : NEG;
+  } else {
+    const int p = mt.pred(g);
+    const int wsp = p == i - 1 ? ws_prev : s.wsr[p];
+    const int* sg = s.src + (size_t)g * WA + t.j0;
+    const int* ag = s.add + (size_t)g * WA + t.j0;
+    const int* fl = s.floor + t.j0;
+    const int* row = (p == i - 1 ? prev : s.pred) + (size_t)t.ql * WA;
+    int sv[V], av[V], fv[V];
+    if constexpr (V == 4) {
+      const int4 s4 = *reinterpret_cast<const int4*>(sg);
+      const int4 a4 = *reinterpret_cast<const int4*>(ag);
+      const int4 f4 = *reinterpret_cast<const int4*>(fl);
+      sv[0] = s4.x; sv[1] = s4.y; sv[2] = s4.z; sv[3] = s4.w;
+      av[0] = a4.x; av[1] = a4.y; av[2] = a4.z; av[3] = a4.w;
+      fv[0] = f4.x; fv[1] = f4.y; fv[2] = f4.z; fv[3] = f4.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        sv[c] = sg[c];
+        av[c] = ag[c];
+        fv[c] = fl[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const int k = t.j0 + c;
+      const int v = sv[c] < 0 ? fv[c] : max(row[sv[c]] + av[c], fv[c]);
+      const bool in_read = ws + k < L;
+      o.v[c] = in_read ? v : NEG;
+      if (in_read && (v > kv || (v == kv && k > kc))) {
+        kv = v;
+        kc = k;
+      }
+      if (in_read && k == W - 1) R = max(R, v - smax * (ws + k));
+      const int jp = wsp + k;   // the source cell's column: stranded by this window?
+      if ((jp < ws || jp >= ws + W - 1) && jp < L) R = max(R, row[k] - smax * jp);
+    }
+  }
+  pw_store<V>(Ab + (size_t)t.ql * plane + (size_t)i * W + t.j0, o);
+  pw_store<V>(cur + (size_t)t.ql * WA + t.j0, o);
+}
+
+// Block b of the grid is read b.  Dynamic shared memory: the row tables
+// twice (pw_meta_ints), then, in the shared-memory form, the per-read
+// scratch.
+template <bool SMEM>
+__global__ void __launch_bounds__(PWW_THREADS, 1) pathwise_win_kernel(const PwwArgs a) {
   __shared__ int s_table[NCODE * NCODE];
+  // the row's best (value, lane) key, by row parity: the value's bits with
+  // the sign flipped, then lane + 1 (0: no on-path cell in the read)
+  __shared__ unsigned long long s_bkey[2];
   __shared__ int s_warp[32];
-  __shared__ long long s_key[32];
+  __shared__ long long s_xt[2][32];   // the chains' carries across warps
+  extern __shared__ int4 s_dyn[];
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
-  const int ntiles = (W + T - 1) / T;
-  for (int t = tid; t < NCODE * NCODE; t += T) s_table[t] = table[t];
+  const int P = a.P, Lp = a.Lp, Gd = a.Gd, n = a.n, W = a.W;
+  const int tid = threadIdx.x, T = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = T >> 5;
+  const int WA = pww_a4(W), LpA = pww_a4(Lp), nA = pww_a4(n);
+  const int MW = pw_meta_ints(Gd, P), nmeta = 1 + 2 * Gd + P;
+  // entry t of row r's tables (PwMeta's layout): one load
+  auto meta_at = [&](int r, int t) { return a.meta[(size_t)r * nmeta + t]; };
+  int* s_meta = reinterpret_cast<int*>(s_dyn);   // [2, MW]
+  unsigned char* base = SMEM ? reinterpret_cast<unsigned char*>(s_meta + 2 * MW)
+                             : a.scratch + (size_t)blockIdx.x * a.stride;
+  PwwScratch s;
+  s.Gab = reinterpret_cast<int*>(base);
+  s.wsr = s.Gab + LpA;
+  s.bspr = s.wsr + nA;
+  s.floor = s.bspr + nA;
+  s.src = s.floor + WA;
+  s.add = s.src + (size_t)Gd * WA;
+  s.pred = s.add + (size_t)Gd * WA;
+  s.last = s.pred + (size_t)P * WA;
+  s.code = reinterpret_cast<unsigned char*>(s.last + (size_t)2 * P * WA);
+
+  for (int t = tid; t < NCODE * NCODE; t += T) s_table[t] = a.table[t];
+  const int* sb = a.seq + (size_t)b * Lp;
+  const int L = a.L[b];
+  for (int j = tid; j < Lp; j += T) s.code[j] = sb[j];
+  for (int t = tid; t < nmeta; t += T) s_meta[t] = meta_at(1, t);
   __syncthreads();
   int smax = 0;
   for (int t = 0; t < NCODE * NCODE; ++t) smax = max(smax, s_table[t]);
-
-  const int L = L_[b];
-  const int* sb = seq + (size_t)b * Lp;
-  int* gw = gw_s + (size_t)b * W;
-  int* kidx = kidx_s + (size_t)b * Gd * W;
-  int* flag = flag_s + (size_t)b * Gd * W;
-  int* rowv = rowv_s + (size_t)b * W;
-  int* bsp = bsp_s + (size_t)b * n;
-  int* ws_b = wss + (size_t)b * n;
-  const size_t plane = (size_t)n * W;    // one path's [n, W] plane
-  int* Ab = Aw + (size_t)b * P * plane;
-
-  // row 0: window at 0, G0 = cumsum(sm(seq[j], '-')) over the first W
-  // columns, every path at G0 - G0[0]; row n-1 stays 0
-  int carry = 0;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k = t * T + tid;
-    const int g = k < W ? s_table[sb[k] * NCODE + GAP] : 0;
-    const int v = tile_prefix_sum(g, s_warp, carry);
-    if (k < W) gw[k] = v;
-  }
-  __syncthreads();
-  const int g0 = gw[0];
-  for (int q = 0; q < P; ++q) {
-    int* r0 = Ab + (size_t)q * plane;
-    int* rl = r0 + (size_t)(n - 1) * W;
-    for (int k = tid; k < W; k += T) {
-      r0[k] = gw[k] - g0;
-      rl[k] = 0;
+  {
+    int carry = 0;
+    for (int t = 0; t < (Lp + T - 1) / T; ++t) {
+      const int j = t * T + tid;
+      const int gv = j < Lp ? s_table[s.code[j] * NCODE + GAP] : 0;
+      const int v = tile_prefix_sum(gv, s_warp, carry);
+      if (j < Lp) s.Gab[j] = v;
     }
   }
-  // row 0's right-edge cell can L-exit right
-  int R = NEG;
+  __syncthreads();
+  const int glast = s_table[s.code[Lp - 1] * NCODE + GAP];
+
+  const size_t plane = (size_t)n * W;   // one path's [n, W] plane
+  int* Ab = a.Aw + (size_t)b * P * plane;
+  // row 0: window at 0, every path at G[k] - G[0]; row n-1 stays 0
+  {
+    const int g0 = s.Gab[0];
+    for (int it = tid; it < P * W; it += T) {
+      const int ql = it / W, k = it - ql * W;
+      int* r0 = Ab + (size_t)ql * plane;
+      r0[k] = s.last[(size_t)ql * WA + k] = s.Gab[k] - g0;
+      r0[(size_t)(n - 1) * W + k] = 0;
+    }
+  }
+  int R = NEG;   // this thread's share of the exit bound
   if (tid == 0) {
-    if (W - 1 < L) R = gw[W - 1] - g0 - smax * (W - 1);
-    ws_b[0] = bsp[0] = ws_b[n - 1] = bsp[n - 1] = 0;
+    if (W - 1 < L) R = s.Gab[W - 1] - s.Gab[0] - smax * (W - 1);
+    s.wsr[0] = s.bspr[0] = 0;
+    a.ws[(size_t)b * n] = a.ws[(size_t)b * n + n - 1] = 0;
+    s_bkey[0] = s_bkey[1] = 0;
   }
   __syncthreads();
 
+  const bool vec = (W & 3) == 0;
+  const int V = vec ? 4 : 1, nq = W / V, items = P * nq;
+  const PwItem ta = pw_item(tid, items, nq, V), tb = pw_item(tid + T, items, nq, V);
+  int ws_prev = 0, bsp_prev = 0;   // row i-1's window start and best position
+  int rmin_n = a.rmin[1];
   for (int i = 1; i < n - 1; ++i) {
-    const int code = codes[i];
-    const int gap_i = s_table[code * NCODE + GAP];
-    const int* sub_row = s_table + code * NCODE;
-    const int* gr = grep + (size_t)i * Gd;
-    const int* gp = gpred + (size_t)i * Gd;
-    const int* ps = pslot + (size_t)i * P;
+    const int step = i - 1;
+    const PwMeta mt{s_meta + (step & 1) * MW, Gd, P};
+    int* next = s_meta + ((step + 1) & 1) * MW;
+    const bool more = i + 1 < n - 1;
+    const int pre = more && tid < nmeta ? meta_at(i + 1, tid) : 0;
+    const int rmin_i = rmin_n;
+    if (more) rmin_n = a.rmin[i + 1];
+    // the lanes' rows i-1 (read) and i (written)
+    const int* prev = s.last + (size_t)((i - 1) & 1) * P * WA;
+    int* cur = s.last + (size_t)(i & 1) * P * WA;
+
+    // this row's key starts at none (its parity was last read at row i-1's
+    // start, before the last row barrier); row i-1's best position is the
+    // rightmost lane of its best on-path value
+    if (tid == 0) s_bkey[i & 1] = 0;
+    if (i > 1) {
+      const unsigned long long key = s_bkey[(i - 1) & 1];
+      bsp_prev = ws_prev + (key ? (int)(key & 0xffffffffu) - 1 : W - 1);
+    }
 
     // the window: centred on the on-lanes' predecessor best positions,
     // covering column L - rmin[i] with W/8 to spare on the right
+    const int ng = mt.groups();
     int lmin = FAR, lmax = 0;
-    for (int q = tid; q < P; q += T) {
-      const int g = ps[q];
-      if (g >= 0) {
-        const int v = bsp[gp[g]];
-        lmin = min(lmin, v);
-        lmax = max(lmax, v);
-      }
+    for (int g = lane; g < ng; g += 32) {
+      const int p = mt.pred(g);
+      const int v = p == i - 1 ? bsp_prev : s.bspr[p];
+      lmin = min(lmin, v);
+      lmax = max(lmax, v);
     }
-    const int ms = -block_max_int(-lmin, s_warp);
-    const int me = block_max_int(lmax, s_warp);
+    const int ms = __reduce_min_sync(FULL, lmin), me = __reduce_max_sync(FULL, lmax);
     const int center = (ms + me) / 2 + 1;
-    const int right_target = max(me + 2, L - rmin[i] + 2) + W / 8;
+    const int right_target = max(me + 2, L - rmin_i + 2) + W / 8;
     const int ws = max(max(center - W / 2, right_target - W), 0) / 8 * 8;
 
-    // window-local gap sums Gw
-    carry = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      const int k = t * T + tid;
-      const int g = k < W ? s_table[sb[min(ws + k, Lp - 1)] * NCODE + GAP] : 0;
-      const int v = tile_prefix_sum(g, s_warp, carry);
-      if (k < W) {
-        gw[k] = v;
-        rowv[k] = NEG;
-      }
-    }
-    __syncthreads();
-
-    // 1. each group's rep chain over its realigned predecessor window
-    for (int g = 0; g < Gd; ++g) {
-      const int r = gr[g];
-      if (r < 0) break;                      // the same for every thread
-      const int p = gp[g];
-      const int shift = ws - ws_b[p];
-      const int* Ar = Ab + (size_t)r * plane + (size_t)p * W;
-      int* kg = kidx + (size_t)g * W;
-      int* fg = flag + (size_t)g * W;
-      int ccarry = INT_MIN, kcarry = -1;
-      for (int t = 0; t < ntiles; ++t) {
-        const int k = t * T + tid;
-        const bool live = k < W;
-        int d_r = 0, u_r = 0, Gk = 0, x = INT_MIN;
-        bool at0 = false;
-        if (live) {
-          const int idx = shift + k;
-          const int ar_al = (idx >= 0 && idx < W) ? Ar[idx] : NEG;
-          const int ar_sh = (idx >= 1 && idx <= W) ? Ar[idx - 1] : NEG;
-          at0 = ws + k == 0;
-          d_r = ar_sh + sub_row[sb[min(ws + k, Lp - 1)]];
-          u_r = ar_al + gap_i;
-          const int ach = at0 ? ar_al + gap_i : max(d_r, u_r);
-          Gk = gw[k];
-          x = ach - Gk;
-        }
-        const int rep_row = Gk + tile_prefix_max(x, s_warp, ccarry);
-        const bool dD = live && rep_row == d_r;
-        const bool dU = live && !dD && rep_row == u_r;
-        const bool nonL = dD || dU || at0 || k == 0;
-        const int kl = tile_prefix_max(live && nonL ? k : -1, s_warp, kcarry);
-        if (live) {
-          kg[k] = kl;
-          fg[k] = dD;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 2. every lane of the row: replay its group's moves; the stranded
-    // predecessor cells of its lane feed the exit bound
-    for (int q = 0; q < P; ++q) {
-      const int g = ps[q];
-      int* out = Ab + (size_t)q * plane + (size_t)i * W;
-      if (g < 0) {
-        for (int k = tid; k < W; k += T) out[k] = ws + k < L ? 0 : NEG;
-        continue;
-      }
-      const int p = gp[g];
-      const int wsp = ws_b[p];
-      const int shift = ws - wsp;
-      const int* Aq = Ab + (size_t)q * plane + (size_t)p * W;
-      const int* kg = kidx + (size_t)g * W;
-      const int* fg = flag + (size_t)g * W;
-      for (int k = tid; k < W; k += T) {
-        const int kk = kg[k];
-        const int idx = shift + kk;
-        int v;
-        if (ws + kk != 0 && fg[kk]) {
-          v = ((idx >= 1 && idx <= W) ? Aq[idx - 1] : NEG) +
-              sub_row[sb[min(ws + kk, Lp - 1)]];
+    // stage the lanes' source rows (shared-memory form: asynchronously)
+    auto stage = [&](const PwItem& t) {
+      if (t.ql < 0) return;
+      const int g = mt.slot(t.ql);
+      if (g < 0 || mt.pred(g) == i - 1) return;   // row i-1: read from `prev`
+      const int* src = Ab + (size_t)t.ql * plane + (size_t)mt.pred(g) * W + t.j0;
+      int* dst = s.pred + (size_t)t.ql * WA + t.j0;
+      if constexpr (SMEM) {
+        if (vec) {
+          cp_async<4>(dst, src, false);
         } else {
-          v = ((idx >= 0 && idx < W) ? Aq[idx] : NEG) + gap_i;
+          cp_async<1>(dst, src, false);
         }
-        const int row = gw[k] + max(v - gw[kk], -WIN_OFF);
-        const bool in_read = ws + k < L;
-        out[k] = in_read ? row : NEG;
-        if (in_read) rowv[k] = max(rowv[k], row);
-        const int jp = wsp + k;
-        if ((jp < ws || jp >= ws + W - 1) && jp < L) R = max(R, Aq[k] - smax * jp);
+      } else if (vec) {
+        pw_store<4>(dst, pw_load<4>(src, false));
+      } else {
+        pw_store<1>(dst, pw_load<1>(src, false));
       }
-    }
+    };
+    auto stage_all = [&]() {
+      stage(ta);
+      stage(tb);
+      for (int it = tid + 2 * T; it < items; it += T) stage(pw_item(it, items, nq, V));
+    };
+    if constexpr (SMEM) stage_all();
 
-    // best-scoring position: the rightmost lane of the row's best
-    // on-lane value; the right-edge lane can exit right by an L move
-    long long key = LLONG_MIN;
-    for (int k = tid; k < W; k += T) {
-      const long long kv = make_key(rowv[k], (unsigned)k);
-      key = kv > key ? kv : key;
-      if (k == W - 1 && ws + k < L) R = max(R, rowv[k] - smax * (ws + k));
+    // each group's rep chain on w warps, from the block's last warp down
+    // (warp 0 also loads the next row's tables)
+    const int code = mt.code();
+    const int gap = s_table[code * NCODE + GAP];
+    const int* sub_row = s_table + code * NCODE;
+    const int w = ng > 0 ? max(1, min(PWW_CHAIN_WARPS, nwarps / ng)) : 1;
+    const int rw = nwarps - 1 - warp;   // this warp counted from the last
+    for (int g = rw / w; g < ng && rw < (nwarps / w) * w; g += nwarps / w) {
+      const int wi = w - 1 - rw % w;
+      const int rep = mt.rep(g), p = mt.pred(g);
+      const int shift = ws - (p == i - 1 ? ws_prev : s.wsr[p]);
+      const int* Ar = p == i - 1 ? prev + (size_t)rep * WA
+                                 : Ab + (size_t)rep * plane + (size_t)p * W;
+      pww_chain<PWW_CW>(s, g, w, wi, Ar, W, WA, Lp, glast, ws, shift, gap, sub_row, g == 0,
+                        s_xt);
     }
-    key = block_max_key(key, s_key);
-    if (tid == 0) {
-      ws_b[i] = ws;
-      bsp[i] = ws + (int)key_tie(key);
+    if constexpr (SMEM) {
+      asm volatile("cp.async.wait_all;" ::: "memory");
+    } else {
+      stage_all();
     }
-    // publishes row i, ws and bsp before row i + 1
     __syncthreads();
+
+    // the replay
+    int kv = INT_MIN, kc = -1;
+    auto replay = [&](const PwItem& t) {
+      if (vec) {
+        pww_replay_item<4>(s, mt, t, Ab, plane, W, WA, i, ws, L, smax, ws_prev, prev, cur, R,
+                           kv, kc);
+      } else {
+        pww_replay_item<1>(s, mt, t, Ab, plane, W, WA, i, ws, L, smax, ws_prev, prev, cur, R,
+                           kv, kc);
+      }
+    };
+    if (ta.ql >= 0) replay(ta);
+    if (tb.ql >= 0) replay(tb);
+    for (int it = tid + 2 * T; it < items; it += T) replay(pw_item(it, items, nq, V));
+    {
+      const int vmax = __reduce_max_sync(FULL, kv);
+      const int cmax = __reduce_max_sync(FULL, kv == vmax ? kc : -1);
+      if (lane == 0 && cmax >= 0)
+        atomicMax(&s_bkey[i & 1], (unsigned long long)((unsigned)vmax ^ 0x80000000u) << 32 |
+                                      (unsigned)(cmax + 1));
+    }
+    if (tid == 0) {
+      s.wsr[i] = ws;
+      s.bspr[i - 1] = bsp_prev;
+      a.ws[(size_t)b * n + i] = ws;
+    }
+    if (more) {
+      if (tid < nmeta) next[tid] = pre;
+      for (int t = tid + T; t < nmeta; t += T) next[t] = meta_at(i + 1, t);
+    }
+    ws_prev = ws;
+    __syncthreads();   // publishes the row
   }
 
+  // the exit bound: the max over the read's threads
   R = block_max_int(R, s_warp);
-  if (tid == 0) bound[b] = R + smax * (L - 1);
+  if (tid == 0) a.bound[b] = R + smax * (L - 1);
+}
+
+int pww_launch(const PwwArgs& a, int B, int threads, int smem, cudaStream_t stream) {
+  auto kern = a.smem_form ? pathwise_win_kernel<true> : pathwise_win_kernel<false>;
+  if (B < 1 || a.n < 3 || a.P < 1 || a.Gd < 1 || a.W < 8 || a.W > a.Lp || threads < 32 ||
+      threads > PWW_THREADS || threads % 32 || smem < 0 ||
+      (!a.smem_form && (a.stride < 1 || a.stride % 16)))
+    return (int)cudaErrorInvalidValue;
+  if (smem > 40 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<B, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rgt
 
 extern "C" int rgt_pathwise_win_fill(
-    const int* seq, const int* L, const int* table, const int* codes, const int* grep,
-    const int* gpred, const int* pslot, const int* rmin, int B, int n, int P, int Lp,
-    int Gd, int W, int* gw, int* kidx, int* flag, int* rowv, int* bsp, int* Aw, int* ws,
-    int* bound, void* stream) {
-  if (B < 1 || n < 3 || P < 1 || Gd < 1 || W < 8 || W > Lp) return (int)cudaErrorInvalidValue;
-  rgt::pathwise_win_kernel<<<B, rgt::block_threads(W), 0, (cudaStream_t)stream>>>(
-      seq, L, table, codes, grep, gpred, pslot, rmin, n, P, Lp, Gd, W, gw, kidx, flag,
-      rowv, bsp, Aw, ws, bound);
-  return (int)cudaGetLastError();
+    const int* seq, const int* L, const int* table, const int* meta, const int* rmin, int B,
+    int n, int P, int Lp, int Gd, int W, int threads, int smem, int smem_form,
+    unsigned char* scratch, long long stride, int* Aw, int* ws, int* bound, void* stream) {
+  const rgt::PwwArgs a{seq, L, table, meta, rmin, n, P, Lp, Gd, W, smem_form, scratch, stride,
+                       Aw, ws, bound};
+  return rgt::pww_launch(a, B, threads, smem, (cudaStream_t)stream);
+}
+
+extern "C" int rgt_pathwise_win_per_sm(int threads, int smem, int smem_form) {
+  auto kern = smem_form ? rgt::pathwise_win_kernel<true> : rgt::pathwise_win_kernel<false>;
+  if (smem > 40 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return -(int)err;
+  }
+  int per_sm = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, (size_t)smem);
+  return err == cudaSuccess ? per_sm : -(int)err;
 }

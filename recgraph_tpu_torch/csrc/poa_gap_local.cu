@@ -6,23 +6,64 @@
 // for every sign of the penalties o, e: the transposed scoring table
 // (sm(seq[j], lnz[i])), the zero floor, start rows whose first-best
 // sweeps begin at 0 / index 0 (ties => Y), non-start rows from row i-1
-// (ties => M), the in-row (M, X) recurrence as a 2-state (max,+) affine
-// scan clamped to NEG, tie order D >= U >= L with all-negative cells as
-// O, three packed planes, and the row-major running best that moves on
-// a strictly greater row maximum (first column).
+// (ties => M), the in-row (M, X) recurrence, tie order D >= U >= L with
+// all-negative cells as O, three packed planes, and the row-major
+// running best that moves on a strictly greater row maximum (first
+// column).
 //
-// Design: one thread block per read, the row's columns in tiles of
-// blockDim.x (poa_common.cuh), so a read of any length fits; the affine
-// scan is a block scan over 2x2 (max,+) maps carried across tiles, and
-// each row's best is a block max over (value, first column) keys.  The
-// m and y rows of the predecessors live in device-memory scratch.
+// The in-row recurrence.  With m[j] = max(c[j], x[j]) and
+// x[j] = max(m[j-1] + o + e, x[j-1] + e), x[j] = max(c[j-1] + o + e,
+// x[j-1] + g) with g = max(o + e, e): a one-state (max,+) chain with a
+// constant step, so
 //
-// What bounds it on this card: one block is latency-bound on its
-// per-row barriers (scan, neighbour exchange, row best); throughput
-// comes from many reads per SM.  It writes 12 bytes per cell of planes
-// plus 8 of m/y scratch.  Later levers: a shared-memory ring of
-// predecessor rows, fewer barriers per row, the linear X chain when
-// o, e <= 0.
+//     x[j] = j g + max(0, max_{k < j} w[k]),  w[k] = c~[k] + o + e - (k + 1) g
+//
+// (c~[0] = 0: column 0 is the (0, 0) state), a prefix maximum.  The 2x2
+// map scan of the reference clamps to NEG; the clamp never acts while
+// |o| + |e| times the read length stays below 2^27, so the two agree
+// (cuda_poa_gap_local.check_chain_range refuses larger penalties).
+//
+// Design (one form a launch, cuda_poa_gap_local.plan picks it):
+// - A read runs on one block of w warps (w = 1 for reads up to 224
+//   columns), each lane holding CW = 1, 3, 5 or 7 contiguous columns
+//   in registers (odd, so that the staging has no bank conflicts; 9
+//   columns spilled registers in this form).  A row is one pass that
+//   computes each column's D and Y candidates and w, a warp max scan
+//   (plus, for w > 1, the warp totals through shared memory and one block
+//   barrier), and a pass that applies the carry to the lane's columns
+//   serially.  The left
+//   neighbours of a lane's first column come from one shuffle of its
+//   neighbour's column data, not from the neighbour's results.  The row
+//   best is two warp reductions (value, first column); for w > 1 each
+//   warp's best goes through shared memory and is folded in after the
+//   next barrier.  No block barrier with w = 1, one a row with w > 1.
+//   The one-warp form is compiled apart (w = 1 known, and the register
+//   budget of a 32-thread block: 140 registers at 5 columns a lane
+//   where the shared 512-thread bound of the other forms spilled).
+// - The register form keeps row i-1's m and y in registers: a non-start
+//   row reads nothing from memory.  Only rows that a start row lists as a
+//   predecessor other than its row i-1 are written to a device scratch
+//   (store_at[row] >= 0, cuda_poa_gap_local.stored_rows); a start row reads
+//   those through srow and its row i-1 from registers.
+// - Reads past 16 warps x 224 columns take the full form: every row's m
+//   and y in a device scratch, the row in windows of 16 warps x 9
+//   columns a lane, one barrier a window and one a row.
+// - The next row's tables (code, start flag, scratch row, the first two
+//   slots) are loaded a row ahead, and with one warp a read and up to 5
+//   columns a lane the next row's far predecessors (slots 0 and 1) are
+//   loaded during this row's second pass.
+// - A warp stages its segment of the three planes (and m, y where the row
+//   is stored) in shared memory, two buffers by row parity so that one
+//   __syncwarp a row orders them, and writes it with coalesced 16-byte
+//   stores (4-byte ones where Lp is not a multiple of 4).  The second
+//   pass is branch-free.
+//
+// What bounds it on this card: the bytes of the three planes (12 a cell)
+// plus 8 a cell of the stored rows set the bound (1.52 ms for a stretch
+// chunk of 1,241 reads); the kernel runs at ~34 % of it (~13 % on long
+// reads; PERF.md), held by a row's latency: the rows of a read are
+// sequential, and a row is a serial chain of one warp's instructions,
+// with about 2 such warps a scheduler on a stretch chunk.
 //
 // The kernel allocates nothing, does not synchronise with the host and
 // runs on the stream it is given.
@@ -31,182 +72,558 @@
 
 namespace rgt {
 
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-poa_gap_local_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
-                     const int* __restrict__ table, const int* __restrict__ codes,
-                     const int* __restrict__ node_start,
-                     const int* __restrict__ pred_idx, int n, int Pm, int Lp, int o,
-                     int e, int* __restrict__ m, int* __restrict__ y,
-                     int* __restrict__ best_val, int* __restrict__ best_i,
-                     int* __restrict__ best_j, int* __restrict__ packed,
-                     int* __restrict__ packed_x, int* __restrict__ packed_y) {
-  __shared__ int s_table[NCODE * NCODE];
-  __shared__ int s_m[MAX_THREADS];
-  __shared__ int s_x[MAX_THREADS];
-  __shared__ Affine s_aff[32];
-  __shared__ long long s_key[32];
+constexpr int GL_THREADS = 512;   // threads a block at most
+constexpr int GL_PLANES = 5;      // staged: packed, packed_x, packed_y, m, y
+constexpr int GL_MAX_WARPS = 16;  // warps a read
+// blocks an SM holds of the one-warp form: its register budget (168 a
+// thread) keeps a stretch chunk of 1,241 reads resident on 132 SMs
+constexpr int GL_ONE_BLOCKS = 12;
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int ntiles = (Lp + blockDim.x - 1) / blockDim.x;
-  const int oe = o + e;
-  for (int t = tid; t < NCODE * NCODE; t += blockDim.x) s_table[t] = table[t];
-  __syncthreads();
+struct GlArgs {
+  const int* seq;       // [B, Lp]
+  const int* L;         // [B]
+  const int* table;     // [7, 7]
+  const int* codes;     // [n]
+  const int* node_start;  // [n]
+  const int* pred_idx;  // [n, Pm] -1 padded
+  const int* srow;      // [n, Pm] scratch row of each slot's predecessor, -1 for none
+  const int* store_at;  // [n] scratch row a row is written to, -1 for none
+  int B, n, Pm, Lp, o, e;
+  int warps;            // warps a read (a block)
+  int S;                // scratch rows a read
+  int* ms;              // [B, S, Lp]
+  int* ys;
+  int* best_val;
+  int* best_i;
+  int* best_j;
+  int* packed;
+  int* packed_x;
+  int* packed_y;
+};
 
-  const int L = L_[b];
-  const int* sb = seq + (size_t)b * Lp;
-  const size_t plane = (size_t)b * n * Lp;
-  int* mb = m + plane;
-  int* yb = y + plane;
-  int* pb = packed + plane;
-  int* pxb = packed_x + plane;
-  int* pyb = packed_y + plane;
-  int bv = 0, bi = 0, bjj = 0;  // running best (thread 0)
+// The first-best sweep of a start row keeps, per column, the slot of its
+// D and U arguments and three flags.
+__device__ __forceinline__ int gl_pack(int dq, int uq, bool dpos, bool upos, bool py_y) {
+  return dq | uq << 12 | (int)dpos << 24 | (int)upos << 25 | (int)py_y << 26;
+}
 
-  // row 0 is all zero and all 'O'; row n-1 (the sink) is never filled
-  for (int k = tid; k < 2 * Lp; k += blockDim.x) {
-    const size_t at = k < Lp ? k : (size_t)(n - 1) * Lp + (k - Lp);
-    mb[at] = yb[at] = pb[at] = pxb[at] = pyb[at] = 0;
+// A predecessor row's m at the lane's columns j0 - 1 .. j0 + CW - 1 and y
+// at j0 .. j0 + CW - 1 (0 past the read's width).
+template <int CW>
+__device__ __forceinline__ void gl_load_row(const int* mp, const int* yp, int j0, int Lp,
+                                            int (&vm)[CW + 1], int (&vy)[CW]) {
+  vm[0] = j0 > 0 && j0 <= Lp ? mp[j0 - 1] : 0;
+#pragma unroll
+  for (int c = 0; c < CW; ++c) {
+    const bool live = j0 + c < Lp;
+    vm[c + 1] = live ? mp[j0 + c] : 0;
+    vy[c] = live ? yp[j0 + c] : 0;
   }
+}
+
+// One slot q of a start row's first-best sweeps over its predecessors,
+// in slot order; padding slots read NEG.
+template <int CW>
+__device__ __forceinline__ void gl_slot(int q, int j0, const int (&vm)[CW + 1],
+                                        const int (&vy)[CW], int (&dpre)[CW], int (&um)[CW],
+                                        int (&uy)[CW], int (&dq)[CW], int (&uq)[CW],
+                                        int (&yq)[CW]) {
+#pragma unroll
+  for (int c = 0; c < CW; ++c) {
+    const int vd = j0 + c > 0 ? vm[c] : NEG;
+    if (q == 0 || vd > dpre[c]) { dpre[c] = vd; dq[c] = q; }
+    if (q == 0 || vm[c + 1] > um[c]) { um[c] = vm[c + 1]; uq[c] = q; }
+    if (q == 0 || vy[c] > uy[c]) { uy[c] = vy[c]; yq[c] = q; }
+  }
+}
+
+// Copy the warp's staged segment (`len` columns of `np` = 3 or 5 planes,
+// SEG apart in `st`) to the planes at `at` (column 0 of the segment) and,
+// for 5, to the scratch rows `m_at`, `y_at`: each lane's shared loads
+// first, then its stores.
+template <int SEG, bool VEC>
+__device__ __forceinline__ void gl_flush(const int* st, int len, int np, int* pk, int* px,
+                                         int* py, int* m_at, int* y_at, int lane) {
+  constexpr int U = VEC ? (SEG / 4 + 31) / 32 : (SEG + 31) / 32;   // items a lane a plane
+#pragma unroll
+  for (int pl = 0; pl < 5; ++pl) {
+    if (pl >= np) break;
+    int* d = pl == 0 ? pk : pl == 1 ? px : pl == 2 ? py : pl == 3 ? m_at : y_at;
+    if constexpr (VEC) {
+      int4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = lane + 32 * u;
+        if (4 * k < len) v[u] = reinterpret_cast<const int4*>(st + pl * SEG)[k];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = lane + 32 * u;
+        if (4 * k < len) reinterpret_cast<int4*>(d)[k] = v[u];
+      }
+    } else {
+      int v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = lane + 32 * u;
+        if (k < len) v[u] = st[pl * SEG + k];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = lane + 32 * u;
+        if (k < len) d[k] = v[u];
+      }
+    }
+  }
+}
+
+// ONE: one warp a read, known when compiling (no cross-warp code, and
+// the register budget of a 32-thread block).
+template <int CW, bool ALL, bool ONE>
+__global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1)
+    poa_gap_local_kernel(const GlArgs a) {
+  __shared__ int s_table[NCODE * NCODE];
+  __shared__ int s_tot[2][32], s_part[2][32], s_clast[2][32];
+  __shared__ long long s_best[2][32];
+  extern __shared__ int4 s_dyn[];
+
+  constexpr int SEG = 32 * CW;
+  const int w = ONE ? 1 : a.warps, wi = ONE ? 0 : threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  for (int t = threadIdx.x; t < NCODE * NCODE; t += blockDim.x) s_table[t] = a.table[t];
   __syncthreads();
 
+  const int n = a.n, Lp = a.Lp, Pm = a.Pm, o = a.o, e = a.e, oe = o + e;
+  const int g = max(oe, e);
+  const int L = a.L[b];
+  const int* sb = a.seq + (size_t)b * Lp;
+  const size_t plane = (size_t)b * n * Lp;
+  int* st2 = reinterpret_cast<int*>(s_dyn) + (size_t)wi * 2 * GL_PLANES * SEG;
+  const int win = w * SEG;                          // columns a window
+  const int nwin = ALL ? (Lp + win - 1) / win : 1;
+  const bool vec = (Lp & 3) == 0;
+  int* msb = a.ms + (size_t)b * a.S * Lp;
+  int* ysb = a.ys + (size_t)b * a.S * Lp;
+
+  // rows 0 and n-1: all 0 and 'O'; row 0's scratch copy, if any, 0
+  {
+    const int s0 = a.store_at[0];
+    for (int t = 0; t < nwin; ++t) {
+      const int c0 = t * win + wi * SEG;
+      for (int k = lane; k < SEG && c0 + k < Lp; k += 32) {
+        const size_t j = c0 + k;
+        a.packed[plane + j] = a.packed_x[plane + j] = a.packed_y[plane + j] = 0;
+        const size_t jl = plane + (size_t)(n - 1) * Lp + j;
+        a.packed[jl] = a.packed_x[jl] = a.packed_y[jl] = 0;
+        if (s0 >= 0) msb[(size_t)s0 * Lp + j] = ysb[(size_t)s0 * Lp + j] = 0;
+      }
+    }
+  }
+  if (w > 1) __syncthreads(); else __syncwarp();
+
+  // the register form's row i-1 (row 0: all 0) and its m left of the
+  // warp's segment (lane 0 of warps past the first)
+  int mu[CW], yu[CW];
+#pragma unroll
+  for (int c = 0; c < CW; ++c) mu[c] = yu[c] = 0;
+  int m_left = 0;
+  unsigned codes_reg = 0;   // the register form's read codes, 3 bits a column
+  if (!ALL) {
+    const int j0 = wi * SEG + lane * CW;
+#pragma unroll
+    for (int c = 0; c < CW; ++c)
+      codes_reg |= (unsigned)(j0 + c < Lp ? sb[j0 + c] : GAP) << (3 * c);
+  }
+
+  int bv = 0, bi = 0, bj = 0;   // the running best (w = 1: every lane; else thread 0)
+  // the row's tables, loaded a row ahead: code, start flag, scratch row,
+  // and the first two slots' predecessors and scratch rows
+  // the next row's far predecessors prefetched (one warp a read: on
+  // several warps their registers would spill)
+  constexpr bool PF = ONE && CW <= 5;
+  int code_n = a.codes[1], start_n = a.node_start[1], store_n = a.store_at[1];
+  int pq0_n = a.pred_idx[Pm], sq0_n = a.srow[Pm];
+  int pq1_n = Pm > 1 ? a.pred_idx[Pm + 1] : -1, sq1_n = Pm > 1 ? a.srow[Pm + 1] : -1;
+  int fm[2][CW + 1], fy[2][CW];   // PF: the current row's far predecessors (slots 0, 1)
+  if (PF && start_n) {   // row 1's predecessors are row 0, kept in registers; any other is far
+    const int j0 = wi * SEG + lane * CW;
+    if (pq0_n > 0) gl_load_row<CW>(msb + (size_t)sq0_n * Lp, ysb + (size_t)sq0_n * Lp, j0, Lp,
+                                   fm[0], fy[0]);
+    if (pq1_n > 0) gl_load_row<CW>(msb + (size_t)sq1_n * Lp, ysb + (size_t)sq1_n * Lp, j0, Lp,
+                                   fm[1], fy[1]);
+  }
   for (int i = 1; i < n - 1; ++i) {
-    const int code = codes[i];
-    const bool is_start = node_start[i] != 0;
-    const int* pi = pred_idx + (size_t)i * Pm;
+    const int code = code_n, store = store_n, pq0 = pq0_n, pq1 = pq1_n;
+    const bool is_start = start_n != 0;
+    int sq0 = sq0_n, sq1 = sq1_n;
+    if (i + 1 < n - 1) {
+      code_n = a.codes[i + 1];
+      start_n = a.node_start[i + 1];
+      store_n = a.store_at[i + 1];
+      pq0_n = a.pred_idx[(size_t)(i + 1) * Pm];
+      sq0_n = a.srow[(size_t)(i + 1) * Pm];
+      if (Pm > 1) {
+        pq1_n = a.pred_idx[(size_t)(i + 1) * Pm + 1];
+        sq1_n = a.srow[(size_t)(i + 1) * Pm + 1];
+      }
+    }
+    const int* pi = a.pred_idx + (size_t)i * Pm;
+    const int* si = a.srow + (size_t)i * Pm;
+    const int* sub_col = s_table + code;   // sm(seq[j], lnz[i]) = table[seq[j]][code]
+    const int rpar = i & 1;
+    int* st = st2 + rpar * GL_PLANES * SEG;   // staging, by row parity
 
-    int c_m = NEG, c_x = NEG;      // scan state carried across tiles
-    int nb_m = NEG, nb_x = NEG;    // left neighbours carried across tiles
-    long long best = LLONG_MIN;
-    for (int t = 0; t < ntiles; ++t) {
-      const int j = tid + t * blockDim.x;
-      const bool live = j < Lp;
-      const bool valid = live && j < L;
-      const bool border = j == 0 || !valid;
-      const int sj = live ? sb[j] : GAP;
-      const int sub = s_table[sj * NCODE + code];  // transposed: sm(seq[j], lnz[i])
-
-      int d_val = NEG, yrow = NEG, d_idx = i - 1, u_idx = i - 1;
-      bool py_is_y = false;
-      if (live && is_start) {
-        // first best over the predecessor slots in order; padding slots
-        // count as NEG at index 0, as the reference engine's argmax sees them
-        int d_pre = NEG, d_arg = 0, um = NEG, um_arg = 0, uy = NEG, uy_arg = 0;
-        for (int q = 0; q < Pm; ++q) {
-          const int p = pi[q];
-          const int ps = p < 0 ? 0 : p;
-          const size_t row_p = (size_t)ps * Lp;
-          const int vd = (p >= 0 && j > 0) ? mb[row_p + j - 1] : NEG;
-          const int vm = p >= 0 ? mb[row_p + j] : NEG;
-          const int vy = p >= 0 ? yb[row_p + j] : NEG;
-          if (q == 0 || vd > d_pre) { d_pre = vd; d_arg = ps; }
-          if (q == 0 || vm > um) { um = vm; um_arg = ps; }
-          if (q == 0 || vy > uy) { uy = vy; uy_arg = ps; }
+    int wcarry = 0;                  // max of w over the windows before
+    int left_p = 0, left_c = 0;      // the previous window's last column (ALL)
+    long long wbest = LLONG_MIN;     // the warp's best (value, first column) of the row
+    for (int t = 0; t < nwin; ++t) {
+      const int c0 = t * win + wi * SEG;   // the warp's first column
+      const int j0 = c0 + lane * CW;       // the lane's first column
+      const int kpar = ALL ? ((i * nwin + t) & 1) : rpar;
+      if (ALL) st = st2 + kpar * GL_PLANES * SEG;
+      unsigned cr = codes_reg;
+      int ml;   // row i-1's m at j0 - 1
+      if (ALL) {
+        cr = 0;
+        const int* mp = msb + (size_t)(i - 1) * Lp;
+        const int* yp = ysb + (size_t)(i - 1) * Lp;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int j = j0 + c;
+          const bool live = j < Lp;
+          cr |= (unsigned)(live ? sb[j] : GAP) << (3 * c);
+          mu[c] = live ? mp[j] : 0;
+          yu[c] = live ? yp[j] : 0;
         }
-        const int um_pre = um + o;
-        d_val = max(d_pre, 0) + sub;
-        d_idx = d_pre > 0 ? d_arg : 0;
-        const int um_s = max(um_pre, 0), uy_s = max(uy, 0);
-        const bool from_m = um_s > uy_s;  // ties => Y (":166-171")
-        yrow = max(um_s, uy_s) + e;
-        u_idx = from_m ? (um_pre > 0 ? um_arg : 0) : (uy > 0 ? uy_arg : 0);
-        py_is_y = !from_m;
-      } else if (live) {
-        // non-start rows (":56-73"): plain i-1; ties => M
-        const size_t up = (size_t)(i - 1) * Lp;
-        const int mu = mb[up + j], yu = yb[up + j];
-        d_val = (j > 0 ? mb[up + j - 1] : NEG) + sub;
-        py_is_y = yu > mu + o;  // strict => Y
-        yrow = max(mu + o, yu) + e;
-      }
-      const int c = max(max(d_val, yrow), 0);
-
-      // the in-row (M, X) affine scan; the band is the whole valid read
-      Affine el;
-      if (!valid) {
-        el = Affine{0, NEG, NEG, 0, NEG, NEG};
-      } else if (j == 0) {
-        el = Affine{NEG, NEG, NEG, NEG, 0, 0};
+        ml = j0 > 0 && j0 <= Lp ? mp[j0 - 1] : 0;
       } else {
-        el = Affine{oe, e, oe, e, c, NEG};
+        ml = __shfl_up_sync(FULL, mu[CW - 1], 1);
+        if (lane == 0) ml = m_left;
       }
-      Affine tot;
-      const Affine pre = block_scan(el, s_aff, tot, affine_op);
-      int vm = pre.b0, vx = pre.b1;
-      if (t > 0) {
-        vm = c_m;
-        vx = c_x;
-        affine_apply(pre, vm, vx);
-        affine_apply(tot, c_m, c_x);
-      } else {
-        c_m = tot.b0;
-        c_x = tot.b1;
-      }
-      const int mrow = border ? 0 : vm;
-      const int xrow = border ? 0 : vx;
-      yrow = border ? 0 : yrow;
 
-      // path_x (":40-54"): X iff x[j-1] > m[j-1] + o (ties => M)
-      const int m_prev = left_neighbour(mrow, nb_m, s_m);
-      const int x_prev = left_neighbour(xrow, nb_x, s_x);
-      if (live) {
-        int cell = 0, cell_x = 0, cell_y = 0;
-        if (!border) {
-          cell_x = i * 16 + (x_prev > m_prev + o ? DIR_X : DIR_M);
-          cell_y = u_idx * 16 + (py_is_y ? DIR_Y : DIR_M);
-          // M directions with zero floor (":96-110"); D >= U >= L
-          if (!(d_val < 0 && yrow < 0 && xrow < 0)) {
-            const bool d_ge_u = d_val >= yrow;
-            if (d_ge_u && d_val >= xrow) {
-              cell = d_idx * 16 + (sj == code ? DIR_D : DIR_LOW_D);
-            } else if (!d_ge_u && yrow >= xrow) {
-              cell = u_idx * 16 + DIR_U;
-            } else {
-              cell = i * 16 + DIR_L;
+      // pass 1: each column's D and Y candidates, and w for the x chain
+      int dv[CW], yv[CW], pk[CW];
+      if (is_start) {
+        int dpre[CW], um[CW], uy[CW], dq[CW], uq[CW], yq[CW];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          dpre[c] = um[c] = uy[c] = NEG;
+          dq[c] = uq[c] = yq[c] = 0;
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q >= Pm) break;
+          const int p = q == 0 ? pq0 : pq1;
+          int vm[CW + 1], vy[CW];   // vm[c + 1]: m[p][j0 + c]; vm[0]: m[p][j0 - 1]
+          if (p < 0) {
+#pragma unroll
+            for (int c = 0; c <= CW; ++c) vm[c] = NEG;
+#pragma unroll
+            for (int c = 0; c < CW; ++c) vy[c] = NEG;
+          } else if (!ALL && p == i - 1) {
+            vm[0] = ml;
+#pragma unroll
+            for (int c = 0; c < CW; ++c) {
+              vm[c + 1] = mu[c];
+              vy[c] = yu[c];
             }
+          } else if (PF) {
+#pragma unroll
+            for (int c = 0; c <= CW; ++c) vm[c] = fm[q][c];
+#pragma unroll
+            for (int c = 0; c < CW; ++c) vy[c] = fy[q][c];
+          } else {
+            const int sr = q == 0 ? sq0 : sq1;
+            gl_load_row<CW>(msb + (size_t)sr * Lp, ysb + (size_t)sr * Lp, j0, Lp, vm, vy);
+          }
+          gl_slot<CW>(q, j0, vm, vy, dpre, um, uy, dq, uq, yq);
+        }
+        for (int q = 2; q < Pm; ++q) {
+          const int p = pi[q];
+          int vm[CW + 1], vy[CW];
+          if (p < 0) {
+#pragma unroll
+            for (int c = 0; c <= CW; ++c) vm[c] = NEG;
+#pragma unroll
+            for (int c = 0; c < CW; ++c) vy[c] = NEG;
+          } else if (!ALL && p == i - 1) {
+            vm[0] = ml;
+#pragma unroll
+            for (int c = 0; c < CW; ++c) {
+              vm[c + 1] = mu[c];
+              vy[c] = yu[c];
+            }
+          } else {
+            gl_load_row<CW>(msb + (size_t)si[q] * Lp, ysb + (size_t)si[q] * Lp, j0, Lp, vm, vy);
+          }
+          gl_slot<CW>(q, j0, vm, vy, dpre, um, uy, dq, uq, yq);
+        }
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int sub = sub_col[NCODE * ((cr >> (3 * c)) & 7)];
+          const int um_pre = um[c] + o;
+          dv[c] = max(dpre[c], 0) + sub;
+          const int ums = max(um_pre, 0), uys = max(uy[c], 0);
+          const bool from_m = ums > uys;   // ties => Y (":166-171")
+          yv[c] = max(ums, uys) + e;
+          pk[c] = gl_pack(dq[c], from_m ? uq[c] : yq[c], dpre[c] > 0,
+                          from_m ? um_pre > 0 : uy[c] > 0, !from_m);
+        }
+      } else {
+        // non-start rows (":56-73"): plain i-1; ties => M
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int sub = sub_col[NCODE * ((cr >> (3 * c)) & 7)];
+          dv[c] = (j0 + c > 0 ? (c > 0 ? mu[c - 1] : ml) : NEG) + sub;
+          yv[c] = max(mu[c] + o, yu[c]) + e;
+          pk[c] = (int)(yu[c] > mu[c] + o) << 26;   // strict => Y
+        }
+      }
+      // the lane's max of w, over all its columns and over all but the last
+      int lmax = 0, lpart = 0;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int j = j0 + c;
+        const int cc = j == 0 ? 0 : max(max(dv[c], yv[c]), 0);
+        const int wv = cc + oe - (j + 1) * g;
+        if (c == CW - 1) lpart = lmax;
+        lmax = c == 0 ? wv : max(lmax, wv);
+      }
+      if (CW == 1) lpart = INT_MIN;
+      const int c_last = j0 + CW - 1 == 0 ? 0 : max(max(dv[CW - 1], yv[CW - 1]), 0);
+      int incl = lmax;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl = max(incl, y);
+      }
+      int excl = __shfl_up_sync(FULL, incl, 1);
+      if (lane == 0) excl = INT_MIN;
+      // the left neighbour's data: the prefix before its last column and
+      // its last column's c
+      int lp = __shfl_up_sync(FULL, max(excl, lpart), 1);
+      int lc = __shfl_up_sync(FULL, c_last, 1);
+
+      int carry = wcarry;   // max of w over the columns before the warp
+      if (w > 1) {
+        if (lane == 31) {
+          s_tot[kpar][wi] = incl;
+          s_part[kpar][wi] = max(excl, lpart);
+          s_clast[kpar][wi] = c_last;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0 && t == 0 && i > 1) {   // the previous row's best
+          long long k = LLONG_MIN;
+          for (int v = 0; v < w; ++v) k = max(k, s_best[rpar ^ 1][v]);
+          const int rmax = key_value(k);
+          if (rmax > bv) {
+            bv = rmax;
+            bi = i - 1;
+            bj = (int)(0x7fffffffu - key_tie(k));
           }
         }
-        const size_t at = (size_t)i * Lp + j;
-        mb[at] = mrow;
-        yb[at] = yrow;
-        pb[at] = cell;
-        pxb[at] = cell_x;
-        pyb[at] = cell_y;
-        const long long key = make_key(valid ? mrow : NEG, 0x7fffffffu - (unsigned)j);
-        best = key > best ? key : best;
+        const int tv = lane < w ? s_tot[kpar][lane] : INT_MIN;
+        const int before = __reduce_max_sync(FULL, lane < wi ? tv : INT_MIN);
+        const int upto = __reduce_max_sync(
+            FULL, lane < wi - 1 ? tv : lane == wi - 1 ? s_part[kpar][lane] : INT_MIN);
+        const int total = __reduce_max_sync(FULL, tv);
+        const int lastp = __reduce_max_sync(
+            FULL, lane < w - 1 ? tv : lane == w - 1 ? s_part[kpar][lane] : INT_MIN);
+        carry = max(wcarry, before);
+        if (lane == 0) {
+          if (wi > 0) {
+            lp = max(wcarry, upto);
+            lc = s_clast[kpar][wi - 1];
+          } else {
+            lp = left_p;
+            lc = left_c;
+          }
+        }
+        left_p = max(wcarry, lastp);   // for the next window's first column
+        left_c = s_clast[kpar][w - 1];
+        wcarry = max(wcarry, total);
+      } else if (lane == 0) {
+        lp = 0;
+        lc = 0;
+      }
+      // the next row's far predecessors (rows i-1 and before, published by
+      // this row's barrier or the last __syncwarp), while this row finishes
+      if (PF && start_n && i + 1 < n - 1) {
+        if (pq0_n >= 0 && pq0_n != i)
+          gl_load_row<CW>(msb + (size_t)sq0_n * Lp, ysb + (size_t)sq0_n * Lp, j0, Lp, fm[0], fy[0]);
+        if (pq1_n >= 0 && pq1_n != i)
+          gl_load_row<CW>(msb + (size_t)sq1_n * Lp, ysb + (size_t)sq1_n * Lp, j0, Lp, fm[1], fy[1]);
+      }
+
+      // pass 2: the carry applied to the lane's columns, in order
+      int P = max(max(carry, excl), 0);
+      int xp, mp_;   // the left neighbour's x and m, border-adjusted
+      {
+        const int jl = j0 - 1;
+        const int xl = jl * g + max(lane == 0 ? lp : max(lp, carry), 0);
+        const bool bl = jl <= 0 || jl >= L;
+        xp = bl ? 0 : xl;
+        mp_ = bl ? 0 : max(lc, xl);
+      }
+      if (!ALL && w > 1 && lane == 0) m_left = mp_;   // row i's m at j0 - 1
+      int lbv = INT_MIN, lbj = 0;
+      int xs[CW];   // x at each column: the running prefix, then the columns' own terms
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int j = j0 + c;
+        xs[c] = j * g + P;
+        P = max(P, (j == 0 ? 0 : max(max(dv[c], yv[c]), 0)) + oe - (j + 1) * g);
+      }
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int j = j0 + c;
+        const bool valid = j < L;
+        const bool border = j == 0 || !valid;
+        const int sj = (cr >> (3 * c)) & 7;
+        const int x = xs[c];
+        const int cv = max(max(dv[c], yv[c]), 0);
+        const int mrow = border ? 0 : max(cv, x);
+        const int xrow = border ? 0 : x;
+        const int yrow = border ? 0 : yv[c];
+        const int xl = c == 0 ? xp : (j == 1 ? 0 : xs[c - 1]);
+        const int mlft = c == 0 ? mp_ : (j == 1 ? 0 : max(max(max(dv[c - 1], yv[c - 1]), 0), xs[c - 1]));
+        const int pkc = pk[c];
+        const int dq = pkc & 0xfff, uq = (pkc >> 12) & 0xfff;
+        int didx = i - 1, uidx = i - 1;
+        if (is_start) {   // uniform over the warp
+          didx = (pkc >> 24) & 1 ? max(dq == 0 ? pq0 : dq == 1 ? pq1 : pi[dq], 0) : 0;
+          uidx = (pkc >> 25) & 1 ? max(uq == 0 ? pq0 : uq == 1 ? pq1 : pi[uq], 0) : 0;
+        }
+        // path_x (":40-54"): X iff x[j-1] > m[j-1] + o (ties => M)
+        const int cell_x = border ? 0 : i * 16 + (xl > mlft + o ? DIR_X : DIR_M);
+        const int cell_y = border ? 0 : uidx * 16 + ((pkc >> 26) & 1 ? DIR_Y : DIR_M);
+        // M directions with zero floor (":96-110"); D >= U >= L
+        const bool d_ge_u = dv[c] >= yv[c];
+        const bool isD = d_ge_u && dv[c] >= x;
+        const bool isU = !d_ge_u && yv[c] >= x;
+        const int mcell = isD ? didx * 16 + (sj == code ? DIR_D : DIR_LOW_D)
+                        : isU ? uidx * 16 + DIR_U : i * 16 + DIR_L;
+        const int cell = border || (dv[c] < 0 && yv[c] < 0 && x < 0) ? 0 : mcell;
+        const bool better = valid && mrow > lbv;
+        lbj = better ? j : lbj;
+        lbv = better ? mrow : lbv;
+        const int k = lane * CW + c;
+        st[k] = cell;
+        st[SEG + k] = cell_x;
+        st[2 * SEG + k] = cell_y;
+        st[3 * SEG + k] = mrow;
+        st[4 * SEG + k] = yrow;
+        if (!ALL) {
+          mu[c] = mrow;
+          yu[c] = yrow;
+        }
+      }
+
+      // the row's best: the warp's (value, first column), then the row's
+      const int vmax = __reduce_max_sync(FULL, lbv);
+      const unsigned jmin = __reduce_min_sync(FULL, lbv == vmax ? (unsigned)lbj : 0xffffffffu);
+      if (vmax != INT_MIN) {
+        const long long key = make_key(vmax, 0x7fffffffu - jmin);
+        wbest = key > wbest ? key : wbest;
+      }
+
+      // the staged segment to the planes (and the scratch), coalesced; the
+      // staging alternates between two buffers, so one __syncwarp a row
+      __syncwarp();
+      const int len = min(SEG, Lp - c0);
+      if (len > 0) {
+        const size_t at = plane + (size_t)i * Lp + c0;
+        const int sr = ALL ? i : store;
+        int* m_at = msb + (size_t)max(sr, 0) * Lp + c0;
+        int* y_at = ysb + (size_t)max(sr, 0) * Lp + c0;
+        if (vec) {
+          gl_flush<SEG, true>(st, len, sr >= 0 ? 5 : 3, a.packed + at, a.packed_x + at,
+                              a.packed_y + at, m_at, y_at, lane);
+        } else {
+          gl_flush<SEG, false>(st, len, sr >= 0 ? 5 : 3, a.packed + at, a.packed_x + at,
+                               a.packed_y + at, m_at, y_at, lane);
+        }
       }
     }
 
-    // row maximum, first column; the barriers inside also publish this
-    // row's scratch before the next row
-    best = block_max_key(best, s_key);
-    if (tid == 0) {
-      const int rmax = key_value(best);
-      if (rmax > bv) {
+    if (w == 1) {
+      const int rmax = key_value(wbest);
+      if (wbest != LLONG_MIN && rmax > bv) {
         bv = rmax;
         bi = i;
-        bjj = (int)(0x7fffffffu - key_tie(best));
+        bj = (int)(0x7fffffffu - key_tie(wbest));
       }
+    } else {
+      if (lane == 0) s_best[rpar][wi] = wbest;
+      if (ALL) __syncthreads();   // publishes the row's scratch to every warp
     }
   }
 
-  if (tid == 0) {
-    best_val[b] = bv;
-    best_i[b] = bi;
-    best_j[b] = bjj;
+  if (w > 1) {
+    __syncthreads();
+    if (threadIdx.x == 0 && n > 2) {
+      long long k = LLONG_MIN;
+      for (int v = 0; v < w; ++v) k = max(k, s_best[(n - 2) & 1][v]);
+      const int rmax = key_value(k);
+      if (rmax > bv) {
+        bv = rmax;
+        bi = n - 2;
+        bj = (int)(0x7fffffffu - key_tie(k));
+      }
+    }
   }
+  if (threadIdx.x == 0) {
+    a.best_val[b] = bv;
+    a.best_i[b] = bi;
+    a.best_j[b] = bj;
+  }
+}
+
+template <int CW, bool ALL, bool ONE>
+int gap_local_launch(const GlArgs& a, cudaStream_t stream) {
+  const int threads = 32 * a.warps;
+  const int smem = threads / 32 * 2 * GL_PLANES * 32 * CW * (int)sizeof(int);
+  auto kern = poa_gap_local_kernel<CW, ALL, ONE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<a.B, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int CW>
+int gap_local_chain(const GlArgs& a, cudaStream_t stream) {
+  return a.warps == 1 ? gap_local_launch<CW, false, true>(a, stream)
+                      : gap_local_launch<CW, false, false>(a, stream);
 }
 
 }  // namespace rgt
 
+// cw: the columns a lane (1, 3, 5 or 7; 9 in the full form); warps:
+// the warps a read, one read a block (1 to 16; 16 in the full form);
+// full: every row's m and y in the scratch.
 extern "C" int rgt_poa_gap_local_fill(
-    const int* seq, const int* L, const int* table, const int* codes,
-    const int* node_start, const int* pred_idx, int B, int n, int Pm, int Lp,
-    int o, int e, int* m, int* y, int* best_val, int* best_i, int* best_j,
-    int* packed, int* packed_x, int* packed_y, void* stream) {
-  if (B < 1 || n < 3 || Pm < 1 || Lp < 1) return (int)cudaErrorInvalidValue;
-  rgt::poa_gap_local_kernel<<<B, rgt::block_threads(Lp), 0, (cudaStream_t)stream>>>(
-      seq, L, table, codes, node_start, pred_idx, n, Pm, Lp, o, e, m, y, best_val,
-      best_i, best_j, packed, packed_x, packed_y);
-  return (int)cudaGetLastError();
+    const int* seq, const int* L, const int* table, const int* codes, const int* node_start,
+    const int* pred_idx, const int* srow, const int* store_at, int B, int n, int Pm, int Lp,
+    int o, int e, int cw, int warps, int full, int S, int* ms, int* ys,
+    int* best_val, int* best_i, int* best_j, int* packed, int* packed_x, int* packed_y,
+    void* stream) {
+  using namespace rgt;
+  if (B < 1 || n < 3 || Pm < 1 || Pm > 4095 || Lp < 1 || S < 1 || warps < 1 ||
+      warps > GL_MAX_WARPS || 32 * warps > GL_THREADS || (!full && Lp > 32 * cw * warps) ||
+      (full && (cw != 9 || warps != GL_MAX_WARPS)))
+    return (int)cudaErrorInvalidValue;
+  const GlArgs a{seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n, Pm, Lp, o, e,
+                 warps, S, ms, ys, best_val, best_i, best_j, packed, packed_x, packed_y};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (full) return gap_local_launch<9, true, false>(a, s);
+  switch (cw) {
+    case 1: return gap_local_chain<1>(a, s);
+    case 3: return gap_local_chain<3>(a, s);
+    case 5: return gap_local_chain<5>(a, s);
+    case 7: return gap_local_chain<7>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -65,9 +65,10 @@ _SIGNATURES = {
     # ... Lp, W, o, e, m, y, bsp, score, last_row, last_col, packed,
     # packed_x, packed_y, lefts, rights, wss, over, stream
     "rgt_poa_gap_global_win_fill": [_P] * 9 + [_I] * 8 + [_P] * 13 + [_P],
-    # seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp, o, e, m,
-    # y, best_val, best_i, best_j, packed, packed_x, packed_y, stream
-    "rgt_poa_gap_local_fill": [_P] * 6 + [_I] * 6 + [_P] * 8 + [_P],
+    # seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n,
+    # Pm, Lp, o, e, cw, warps, full, S, ms, ys, best_val, best_i, best_j,
+    # packed, packed_x, packed_y, stream
+    "rgt_poa_gap_local_fill": [_P] * 8 + [_I] * 10 + [_P] * 8 + [_P],
     # seq, table, codes, grep, gpred, pslot, gcount, B, n, P, Lp, Gd,
     # semiglobal, cluster, threads, smem, smem_form, cw, scratch, stride, A,
     # stream
@@ -76,9 +77,11 @@ _SIGNATURES = {
     # or -error
     "rgt_pathwise_per_sm": [_I] * 4,
     "rgt_pathwise_rev_per_sm": [_I] * 4,
-    # seq, L, table, codes, grep, gpred, pslot, rmin, B, n, P, Lp, Gd, W,
-    # gw, kidx, flag, rowv, bsp, Aw, ws, bound, stream
-    "rgt_pathwise_win_fill": [_P] * 8 + [_I] * 6 + [_P] * 8 + [_P],
+    # seq, L, table, meta, rmin, B, n, P, Lp, Gd, W, threads, smem,
+    # smem_form, scratch, stride, Aw, ws, bound, stream
+    "rgt_pathwise_win_fill": [_P] * 5 + [_I] * 9 + [_P, _LL] + [_P] * 3 + [_P],
+    # threads, smem, smem_form -> blocks an SM holds, or -error
+    "rgt_pathwise_win_per_sm": [_I] * 3,
     # seq, L, table, codes, grep, gpred, pslot, qsrc, gcount, B, n, P, Lp,
     # Gd, mode8, cluster, threads, smem, smem_form, cw, scratch, stride, A,
     # stream

@@ -50,6 +50,43 @@ def rmin_tensor(dg) -> torch.Tensor:
     return dg.cached("_rmin", lambda: torch.from_numpy(_rmin(dg)).to(dg.device))
 
 
+def win_replay_table_plain(Ar, shift, sub, gap, Gw, at0):
+    """The per-group table K10's chain warps build (``csrc/pathwise_win.cu``)
+    from the group's rep row ``Ar`` int32[..., W] (the rep's plane at the
+    group's pred row, in the pred row's window) and ``shift`` int[...] =
+    ws - ws[pred]: (src, add, floor) int32[..., W] such that every lane q
+    of the group fills
+
+        row_q[k] = floor[k] if src[k] < 0 else max(Aq[src[k]] + add[k], floor[k])
+
+    with Aq its own plane at that pred row, unshifted: src is already
+    shifted into the pred row's window (-1 where it falls outside) and
+    the clamp ``V - Gw >= -OFF`` of :func:`fill_pathwise_win_plain` is the
+    floor Gw[k] - OFF.  ``sub`` is sm(code_i, read code at ws + k), ``gap``
+    the node's gap, ``Gw`` the window-local gap sums and ``at0`` where
+    ws + k == 0 (all [..., W], broadcast against Ar)."""
+    W = Ar.shape[-1]
+    sub, Gw, at0 = (t.expand(Ar.shape) for t in (sub, Gw, at0))
+    kcol = torch.arange(W, device=Ar.device)
+    idx = shift[..., None] + kcol
+    ok = (idx >= 0) & (idx < W)
+    okm1 = (idx >= 1) & (idx <= W)
+    Ar_al = torch.where(ok, Ar.gather(-1, idx.clamp(0, W - 1).long()), NEG)
+    Ar_sh = torch.where(okm1, Ar.gather(-1, (idx - 1).clamp(0, W - 1).long()), NEG)
+    d = Ar_sh + sub
+    u = Ar_al + gap
+    x = torch.where(at0, u, torch.maximum(d, u)) - Gw
+    rep_row = Gw + torch.cummax(x, dim=-1).values
+    dirD = rep_row == d
+    nonL = dirD | (rep_row == u) | at0 | (kcol == 0)
+    kk = torch.cummax(torch.where(nonL, kcol, -1), dim=-1).values.long()
+    formD = (dirD & ~at0).gather(-1, kk)
+    src = idx.gather(-1, kk) - formD.to(idx.dtype)
+    src = torch.where((src >= 0) & (src < W), src, -1)
+    add = torch.where(formD, sub.gather(-1, kk), gap) + Gw - Gw.gather(-1, kk)
+    return src.to(_I32), add.to(_I32), (Gw - OFF).to(_I32)
+
+
 def fill_pathwise_win_plain(dg, table, seq, L, W, rmin):
     """Windowed mode-4 (global) fill, as a torch row loop.
 
@@ -67,6 +104,17 @@ def fill_pathwise_win_plain(dg, table, seq, L, W, rmin):
     and the replayed value is clamped to ``V - Gw >= -OFF`` with Gw the
     window-local gap sum, as the JAX engine's packed chain clamps it.
     """
+    return _fill_win_rows(dg, table, seq, L, W, rmin, False)
+
+
+def fill_pathwise_win_via_table(dg, table, seq, L, W, rmin):
+    """:func:`fill_pathwise_win_plain` with every row replayed from
+    :func:`win_replay_table_plain`'s (src, add, floor) table, as K10
+    replays it; the same outputs, cell for cell."""
+    return _fill_win_rows(dg, table, seq, L, W, rmin, True)
+
+
+def _fill_win_rows(dg, table, seq, L, W, rmin, via_table):
     h = dg.host()
     n, P = dg.n, dg.paths_number
     B, Lp = seq.shape
@@ -139,23 +187,15 @@ def fill_pathwise_win_plain(dg, table, seq, L, W, rmin):
         )
         R = torch.maximum(R, torch.where(stranded, Aq - smax * jabs_p, NEG).amax(dim=(1, 2)))
 
-        # rep rows: (max,+) chain over the window
-        d_r = Ar_sh + subrow
-        u_r = Ar_al + gap_i
         at0 = (jabs == 0)[:, None, :]                      # [B, 1, W]
-        Achain = torch.where(at0, Ar_al + gap_i, torch.maximum(d_r, u_r))
         Gw = torch.cumsum(gseq_w, 1, dtype=_I32)[:, None, :]   # window-local
-        rep_row = Gw + torch.cummax(Achain - Gw, dim=2).values
-        dirD = rep_row == d_r
-        dirU = ~dirD & (rep_row == u_r)
-        # the window's first lane restarts the replay too
-        nonL = dirD | dirU | at0 | (kcol == 0)
-
-        V = torch.where(dirD, Aq_sh + subrow, Aq_al + gap_i)
-        V = torch.where(at0, Aq_al + gap_i, V)
-        Vc = torch.clamp(V - Gw, min=-OFF)
-        kidx = torch.cummax(torch.where(nonL, kcol, -1), dim=2).values.long()
-        row = Gw + Vc.gather(2, kidx)
+        if via_table:
+            src, add, floor = win_replay_table_plain(Ar, ws_i[:, None] - ws_p, subrow, gap_i,
+                                                     Gw, at0)
+            got = torch.maximum(Aq.gather(2, src.clamp(min=0).long()) + add, floor)
+            row = torch.where(src < 0, floor, got)
+        else:
+            row = _replay_row(Aq_al, Aq_sh, Ar_al, Ar_sh, subrow, gap_i, Gw, at0, kcol)
         row = torch.where(on[None, :, None], row, 0)
         row = torch.where(in_read[:, None, :], row, NEG)
 
@@ -173,6 +213,26 @@ def fill_pathwise_win_plain(dg, table, seq, L, W, rmin):
         wss[:, i] = ws_i
         bsp[:, i] = bsp_i
     return A, wss, R + smax * (L - 1)
+
+
+def _replay_row(Aq_al, Aq_sh, Ar_al, Ar_sh, subrow, gap_i, Gw, at0, kcol):
+    """A row's cells of every lane [B, P, W]: its group rep's (max,+)
+    chain over the window, then each lane's replay of the rep's moves
+    from its own realigned pred window (the XLA engine's form)."""
+    d_r = Ar_sh + subrow
+    u_r = Ar_al + gap_i
+    Achain = torch.where(at0, Ar_al + gap_i, torch.maximum(d_r, u_r))
+    rep_row = Gw + torch.cummax(Achain - Gw, dim=2).values
+    dirD = rep_row == d_r
+    dirU = ~dirD & (rep_row == u_r)
+    # the window's first lane restarts the replay too
+    nonL = dirD | dirU | at0 | (kcol == 0)
+
+    V = torch.where(dirD, Aq_sh + subrow, Aq_al + gap_i)
+    V = torch.where(at0, Aq_al + gap_i, V)
+    Vc = torch.clamp(V - Gw, min=-OFF)
+    kidx = torch.cummax(torch.where(nonL, kcol, -1), dim=2).values.long()
+    return Gw + Vc.gather(2, kidx)
 
 
 def fill_pathwise_win_best(dg, table, seq, L, W, rmin):

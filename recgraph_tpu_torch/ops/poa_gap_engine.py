@@ -250,12 +250,35 @@ def _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, windowed):
 # ---------------------------------------------------------------------------
 
 
-def fill_gap_local_plain(dg, table, seq, L, o, e):
+def x_chain_plain(c, o, e):
+    """Mode 3's in-row (M, X) recurrence as K5 solves it: with
+    g = max(o + e, e), x[j] = max(c[j-1] + o + e, x[j-1] + g), so
+
+        x[j] = j g + max(0, max_{k < j} w[k]),  w[k] = c~[k] + o + e - (k + 1) g
+
+    (c~[0] = 0: column 0 is the (0, 0) state), a prefix maximum, and
+    m[j] = max(c[j], x[j]).  ``c`` int32[B, W] (column 0 ignored).
+    Returns (m_row, x_row) before the border; equal to
+    :func:`_affine_row_scan`'s on every valid column while the values stay
+    far from NEG."""
+    B, W = c.shape
+    g = max(o + e, e)
+    j = torch.arange(W, dtype=_I32, device=c.device)
+    w = torch.where(j == 0, 0, c) + (o + e) - (j + 1) * g
+    pre = torch.cummax(w, dim=1).values
+    pre = torch.cat([torch.zeros((B, 1), dtype=_I32, device=c.device), pre[:, :-1]], 1)
+    x = j * g + pre.clamp(min=0)
+    return torch.maximum(c, x), x
+
+
+def fill_gap_local_plain(dg, table, seq, L, o, e, chain=False):
     """Mode-3 fill for a read batch, as a torch row loop.
 
     Scores as (seq[j], lnz[i]), the transposed table of
     gap_local_poa.rs:57,137.  Returns (best_val[B], best_i[B], best_j[B],
-    packed, packed_x, packed_y int32[B, n, Lp]).
+    packed, packed_x, packed_y int32[B, n, Lp]).  ``chain`` solves each
+    row's (M, X) recurrence as K5 does (:func:`x_chain_plain`) instead of
+    the reference's 2x2 map scan; the outputs are the same.
     """
     h = dg.host()
     n = dg.n
@@ -311,7 +334,10 @@ def fill_gap_local_plain(dg, table, seq, L, o, e):
             py_code = torch.where(from_y, Y_DIR, M_DIR)
 
         c = torch.clamp(torch.maximum(d_val, y_row), min=0)
-        m_row, x_row = _affine_row_scan(c, zero2, is_left, valid, o, e)
+        if chain:
+            m_row, x_row = x_chain_plain(c, o, e)
+        else:
+            m_row, x_row = _affine_row_scan(c, zero2, is_left, valid, o, e)
         m_row = torch.where(border0, 0, m_row)
         x_row = torch.where(border0, 0, x_row)
         y_row = torch.where(border0, 0, y_row)

@@ -321,6 +321,101 @@ def test_pathwise_win_kernel_matches_plain(cuda, tmp_path):
                       pathwise_window.fill_pathwise_win_plain(dg, table, seq, L, W, rmin), W)
 
 
+def _gap_local_edge(name, tmp_path):
+    """(PoaGraph, reads, read width to pad to, forced layouts) of a K5 case
+    at the edges of its launch layout (``cuda_poa_gap_local.plan``); None
+    in the layouts is the wrapper's own choice."""
+    Plan = cuda_poa_gap_local.Plan
+    seqs = fasta.get_sequences(EXAMPLE[0])[0]
+    example = PoaGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+    if name == "bp1":   # 1-bp reads: one column a lane
+        return example, ["$A", "$C", "$G", "$T", "$N"], None, (None,)
+    if name in ("lp151", "lp161", "lp225", "lp321"):
+        # a width of 151 (not a multiple of 4: no 16-byte stores); past a
+        # warp of 5 columns a lane; just past one warp a read (2 warps);
+        # past two warp segments (3 warps; reads are padded to 8 columns)
+        return example, seqs[:6], int(name[2:]), (None,)
+    if name == "forced":   # several warps a read, the full form in one window
+        return example, seqs[:6], None, (None, Plan(2, 5, False), Plan(3, 3, False),
+                                         Plan(16, 9, True))
+    if name == "fan40":   # a start row of 40 predecessor slots
+        gf = fuzz.fan_gfa(40)
+        rng = random.Random(40)
+        return PoaGraph.from_gfa(gf), [fuzz.random_read(rng, gf) for _ in range(4)], None, (
+            None, Plan(2, 5, False), Plan(16, 9, True))
+    # long5k: a 4,900-bp read on the long corpus' graph, the full form in
+    # two windows (with a 2,440-bp read beside it)
+    from make_synthetic import make
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        make(str(tmp_path), n_back=1200, n_reads=1, seed=11)
+    gfa_path = str(tmp_path / "graph.gfa")
+    r = _long_reads(gfa_path, 2, 11)
+    return PoaGraph.from_gfa(gfa.parse_gfa(gfa_path)), [r[0] + r[1][1:], r[1]], None, (None,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bp1", "lp151", "lp161", "lp225", "lp321", "forced", "fan40",
+                                  "long5k"])
+def test_gap_local_kernel_at_layout_edges(cuda, tmp_path, name):
+    """K5 at the edges of its layout, every output equal to the plain fill
+    for both signs of the gap open and both tables: 1-bp reads; widths of
+    151 (no 16-byte stores), 168 (7 columns a lane), 232 (just past one
+    warp a read) and 328 (past two warp segments); 2 and 3 warps a read
+    and the full form forced on the example reads (start rows
+    whose predecessors lie up to 218 rows back); a start row of 40
+    predecessor slots; a 4,900-bp read (the full form in two windows)."""
+    g, reads, pad_to, layouts = _gap_local_edge(name, tmp_path)
+    dg = poa_device_graph(g, cuda)
+    seq, L = encode_reads(reads, pad_to=pad_to, device=cuda)
+    if name == "lp151":
+        seq = seq[:, :151].contiguous()
+    for matrix, (o, e) in (("none", (-4, -2)), ("none", (1, -2)), ("HOXD70", (-4, -2))):
+        if name == "long5k" and matrix == "HOXD70":
+            continue
+        table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table,
+                                dtype=torch.int32).to(cuda)
+        ref = poa_gap_engine.fill_gap_local_plain(dg, table, seq, L, o, e)
+        for layout in layouts:
+            _assert_equal(cuda_poa_gap_local.fill_gap_local_cuda(dg, table, seq, L, o, e, layout),
+                          ref, ("K5", name, matrix, o, e, layout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["long8", "example", "fan40"])
+def test_pathwise_win_kernel_at_layout_edges(cuda, tmp_path, name):
+    """K10 at the edges of its layout, all three outputs equal to the
+    plain fill: 8 long reads (rows of 2 groups) and a read shorter than
+    the window at W = 32 (the exit bound of reads that fail the guard)
+    and 1,024; the example graph (rows of up to
+    9 groups) at W = 64 and W = 34 (not a multiple of 4: no 16-byte
+    stores); a 41,000-bp read on a row of 40 groups at W = 1,024 (the
+    per-read scratch in device memory)."""
+    if name == "long8":
+        from make_synthetic import make
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            make(str(tmp_path), n_back=1200, n_reads=1, seed=11)
+        gfa_path = str(tmp_path / "graph.gfa")
+        g = PathGraph.from_gfa(gfa.parse_gfa(gfa_path))
+        reads, widths = _long_reads(gfa_path, 8, 11) + ["$" + "ACGT" * 5], (32, 1024)
+    elif name == "example":
+        g = PathGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+        reads, widths = fasta.get_sequences(EXAMPLE[0])[0][:8], (64, 34)
+    else:
+        g = PathGraph.from_gfa(fuzz.fan_gfa(40))
+        reads = ["$" + "".join(random.Random(5).choice("ACGT") for _ in range(41000))]
+        widths = (1024,)
+    dg = path_device_graph(g, cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table, dtype=torch.int32).to(cuda)
+    seq, L = encode_reads(reads, device=cuda)
+    rmin = pathwise_window.rmin_tensor(dg)
+    for W in widths:
+        ref = pathwise_window.fill_pathwise_win_plain(dg, table, seq, L, W, rmin)
+        _assert_equal(cuda_pathwise_win.fill_pathwise_win_cuda(dg, table, seq, L, W, rmin), ref,
+                      ("K10", name, W))
+
+
 @pytest.mark.cuda
 def test_pathwise_dispatch_launches_kernels_and_counts(cuda):
     seqs, _ = fasta.get_sequences(EXAMPLE[0])
