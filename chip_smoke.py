@@ -47,7 +47,13 @@ Phases, in order; any failure raises and the script exits nonzero:
             the example corpus, three seeded random graphs, HOXD70 (K2,
             K5, K7, K8), (o, e) = (+1, -2) (K4, K5), K5 at the edges of
             its layout (1-bp reads, widths of 151, 168, 232 and 328, forced
-            layouts, 40 predecessor slots, a 4,900-bp read), K10 on a read
+            layouts, 40 predecessor slots, a 4,900-bp read) and with its
+            clamped chain past (|o| + |e|) x Lp = 2^27 (-O 100000 -E 1 on
+            two long reads; (-2^20, 0), also in the full form, and
+            e = -2^22 on the example reads), K2 and K4 at the edges of
+            the same layout (widths of 224 and 225 besides K5's) and K4
+            with its clamped chain (o = -30000 on the example graph: one
+            warp, two, the full form), K10 on a read
             shorter than W, at W = 34 and with its scratch in device
             memory, K1 on 64 long reads at
             full width, K3/K6/K10 at W = 32, where reads overflow, K7 in
@@ -318,6 +324,7 @@ def kernel_cases(example, long, workdir):
     cases[("poa", "bp1")] = (cases[("poa", "example")][0], ["$A", "$C", "$G", "$T", "$N"])
     cases[("poa", "fan40")] = (PoaGraph.from_gfa(fan), cases[("path", "fan40")][1])
     cases[("poa", "long5k")] = (cases[("poa", "long64")][0], [l2[0] + l2[1][1:], l2[1]])
+    cases[("poa", "long2")] = (cases[("poa", "long64")][0], l2)   # K5's clamped chain
     # K10: a read shorter than the window beside the long reads
     cases[("path", "long8s")] = (cases[("path", "long8")][0],
                                  cases[("path", "long8")][1] + ["$" + "ACGT" * 5])
@@ -526,6 +533,27 @@ def kernel_specs():
                 case("example", layout=GP(2, 5, False)),
                 case("example", oe=(1, -2), layout=GP(16, 9, True)), case("fan40"),
                 case("fan40", "HOXD70", oe=(1, -2), layout=GP(2, 5, False)), case("long5k")]
+    # K5's clamped chain, past (|o| + |e|) x Lp = 2^27: the CLI's -O 100000
+    # -E 1 on reads past 1,342 bp (16 warps a read; the full form), and on
+    # the example reads (one warp a read) at (-2^20, 0) and at e = -2^22,
+    # where the reference's scan clamps
+    gl_clamped = [case("long2", oe=(-100000, -1)), case("example", oe=(-(1 << 20), 0)),
+                  case("example", oe=(-(1 << 20), 0), layout=GP(16, 9, True)),
+                  case("example", oe=(-5, -(1 << 22)))]
+    # K2 and K4 at the edges of the same layout: widths of 224 (one warp of
+    # 7 columns a lane) and 225 (two warps) besides K5's, the full form in
+    # one window (forced) and in two (the 4,900-bp read); K4 also past its
+    # prefix-max chain's range ((|o| + |e|) (2n + 2Lp + 2) >= 2^26: the
+    # clamped chain) on one warp, two and the full form
+    wl_edges = [case("bp1"), case("example", width=151), case("example", pad_to=224),
+                case("example", pad_to=225), case("example", layout=GP(2, 5, False)),
+                case("example", layout=GP(16, 9, True)), case("fan40"),
+                case("fan40", layout=GP(2, 5, False)), case("long5k")]
+    gg_edges = wl_edges + [case("bp1", oe=(1, -2)), case("example", pad_to=225, oe=(1, -2)),
+                           case("fan40", "HOXD70", oe=(1, -2), layout=GP(16, 9, True)),
+                           case("example", oe=(-30000, -1)),
+                           case("example", pad_to=225, oe=(-30000, -1)),
+                           case("example", oe=(-30000, -1), layout=GP(16, 9, True))]
     gap = [case("tile")] + [case(c, matrix=m, oe=oe, semi=semi) for semi in (False, True)
                             for c, m, oe in (
         ("example", "none", (O, E)), ("p130", "none", (O, E)), ("p33", "none", (O, E)),
@@ -538,7 +566,7 @@ def kernel_specs():
              args=glob_args, cases=poa + [case("long64")]),
         dict(id="K2", mod=cuda_poa_local, kern=cuda_poa_local.fill_local_cuda,
              plain=loc(lambda out: out[:4]), shared=True, graph="poa", ops=(20, 4),
-             args=loc_args, cases=local),
+             args=loc_args, cases=local + wl_edges + [case("fan40", "HOXD70")]),
         dict(id="K13", mod=cv.LOCAL_V1, kern=cv.fill_local_v1_cuda,
              plain=loc(pv.local_v1_layout), shared=True, ab=True, graph="poa", ops=(20, 4),
              args=loc_args, shapes_of=cuda_poa_local.KERNEL, cases=local),
@@ -564,11 +592,12 @@ def kernel_specs():
         dict(id="K4", mod=cuda_poa_gap_global, kern=cuda_poa_gap_global.fill_gap_global_cuda,
              plain=poa_gap_engine.fill_gap_global_plain, graph="poa", ops=(60, 8),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.o, x.e),
-             cases=poa + [case("example", oe=(1, -2))]),
+             cases=poa + [case("example", oe=(1, -2)), case("example", "HOXD70"), *gg_edges]),
         dict(id="K5", mod=cuda_poa_gap_local, kern=cuda_poa_gap_local.fill_gap_local_cuda,
              plain=poa_gap_engine.fill_gap_local_plain, graph="poa", ops=(60, 8),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.o, x.e),
-             cases=poa + [case("example", "HOXD70"), case("example", oe=(1, -2)), *gl_edges]),
+             cases=poa + [case("example", "HOXD70"), case("example", oe=(1, -2)), *gl_edges,
+                          *gl_clamped]),
         dict(id="K6", mod=cuda_poa_gap_global_win,
              kern=cuda_poa_gap_global_win.fill_gap_global_win_cuda,
              plain=poa_gap_engine.fill_gap_global_windowed_plain, graph="poa", ops=(62, 10),

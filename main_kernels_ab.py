@@ -10,7 +10,17 @@ its kernels) and times with CUDA events, one warm-up first:
 - K1 (``poa_engine.fill_global_best``) and K2 (``fill_local_best``) on
   the first 3,047 reads of the stretch corpus (``tools/make_synthetic.
   make(d, 700, 10000, 42)``, n = 2,249, Lp = 152): the mean of 3
-  launches, repeated 5 times;
+  launches, repeated 5 times, with a checksum of the outputs; K2 also
+  on the first 859 stretch reads and on the first 64 long reads at full
+  width, and K4 (``cuda_poa_gap_global.fill_gap_global_cuda``, mode 2
+  with the CLI's o = -4, e = -2 and band slack) on the first 1,241 and
+  72 stretch reads: the mean of 3 launches, repeated 3 times, and a
+  checksum;
+- K5's clamped chain on the first 46 long reads at the CLI's
+  -O 100000 -E 1 (a checkout whose wrapper refuses these penalties
+  records the refusal), and K6 (``cuda_poa_gap_global_win.
+  fill_gap_global_win_cuda``, W = 256) on the first 437 long reads: the
+  mean of 3 launches, repeated 3 times, and a checksum;
 - K5 (``cuda_poa_gap_local.fill_gap_local_cuda``, mode 3 with the CLI's
   o = -4, e = -2) on the first 1,241 stretch reads and on the first 46
   reads of the long corpus (``chip_smoke.make_long``, n = 3,798, Lp =
@@ -47,8 +57,10 @@ its kernels) and times with CUDA events, one warm-up first:
   of the older wrapper, which laid its inputs out on every call: the
   mean of 3 launches, repeated 5 times.
 
-Prints one JSON line per ROOT and the card's ``nvidia-smi`` name and
-power limit.  Compare two checkouts only within one run.  Needs CUDA.
+Prints one JSON line per ROOT (with the ptxas registers and spill
+stores of the K2, K4 and K5 kernels that checkout built) and the card's
+``nvidia-smi`` name and power limit.  Compare two checkouts only within
+one run.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -119,12 +131,45 @@ def checksum(res):
 
 from recgraph_tpu_torch.ops import cuda_poa_gap_local, cuda_pathwise_win
 
+for name, fn in fills.items():
+    out[name + " checksum"] = checksum(fn())
 seq5, L5 = seq[:1241].contiguous(), L[:1241].contiguous()
 k5 = lambda: cuda_poa_gap_local.fill_gap_local_cuda(dg, table, seq5, L5, -4, -2)
 out["K5 stretch 1241"] = timed(k5, 3, 3)
 out["K5 stretch 1241 checksum"] = checksum(k5())
-del dg, seq, L, bta, fills, seq5, L5
+del seq5, L5
 torch.cuda.empty_cache()
+
+from recgraph_tpu_torch.ops import cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_local
+
+for B in (1241, 72):   # K4 at the stretch chunk shapes of mode 2
+    sB, LB, bB = seq[:B].contiguous(), L[:B].contiguous(), bta[:B].contiguous()
+    k4 = lambda: cuda_poa_gap_global.fill_gap_global_cuda(dg, table, sB, LB, bB, -4, -2)
+    out[f"K4 stretch {B}"] = timed(k4, 3, 3)
+    out[f"K4 stretch {B} checksum"] = checksum(k4())
+    del sB, LB, bB
+    torch.cuda.empty_cache()
+sB, LB = seq[:859].contiguous(), L[:859].contiguous()   # K2 at the last stretch chunk's shape
+k2 = lambda: cuda_poa_local.fill_local_cuda(dg, table, sB, LB)
+out["K2 stretch 859"] = timed(k2, 3, 3)
+out["K2 stretch 859 checksum"] = checksum(k2())
+del dg, seq, L, bta, fills, sB, LB
+torch.cuda.empty_cache()
+
+from recgraph_tpu_torch.ops import _kernels
+ptxas, entry = {}, None
+with open(_kernels.library_path()[:-3] + ".log") as fh:   # -Xptxas -v of this checkout's build
+    for ln in fh:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            entry = entry if any(k in entry for k in ("poa_gap_global_kernel", "poa_local_kernel",
+                                                     "poa_gap_local_kernel")) else None
+        elif entry and "spill stores" in ln:
+            spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif entry and "Used" in ln and "registers" in ln:
+            ptxas[entry] = [int(ln.split("Used")[1].split()[0]), int(spill)]
+            entry = None
+out["ptxas registers, spill stores"] = ptxas
 
 import chip_smoke
 from recgraph_tpu_torch.graph.pathgraph import PathGraph
@@ -147,7 +192,23 @@ k5 = lambda: cuda_poa_gap_local.fill_gap_local_cuda(dg, table, seq, L, -4, -2)
 out["K5 long 46"] = timed(k5, 3, 3)
 out["K5 long 46 checksum"] = checksum(k5())
 out["K5 long 46 shape"] = [seq.shape[0], dg.n, seq.shape[1]]
-del dg, seq, L
+k5c = lambda: cuda_poa_gap_local.fill_gap_local_cuda(dg, table, seq, L, -100000, -1)
+try:   # the clamped chain: (|o| + |e|) x Lp past 2^27
+    out["K5 clamped long 46 O100000 E1"] = timed(k5c, 3, 3)
+    out["K5 clamped long 46 O100000 E1 checksum"] = checksum(k5c())
+except ValueError as exc:
+    out["K5 clamped long 46 O100000 E1"] = f"refused: {exc}"
+seq_l, L_l = encode_reads(long_reads[:64], pad_to=2440, device="cuda")
+k2 = lambda: cuda_poa_local.fill_local_cuda(dg, table, seq_l, L_l)
+out["K2 long 64"] = timed(k2, 3, 3)
+out["K2 long 64 checksum"] = checksum(k2())
+seq_w, L_w = encode_reads(long_reads[:437], pad_to=2440, device="cuda")
+bta_w = encode_read_aux([int(1 + 0.01 * len(s)) for s in long_reads[:437]], "cuda")
+k6 = lambda: cuda_poa_gap_global_win.fill_gap_global_win_cuda(dg, table, seq_w, L_w, bta_w,
+                                                              -4, -2, 256)
+out["K6 long 437 W256"] = timed(k6, 3, 3)
+out["K6 long 437 W256 checksum"] = checksum(k6())
+del dg, seq, L, seq_l, L_l, seq_w, L_w, bta_w
 torch.cuda.empty_cache()
 from recgraph_tpu_torch.graph.pathgraph import PathGraph
 from recgraph_tpu_torch.ops import pathwise_window

@@ -1,7 +1,10 @@
 // Shared pieces of the POA fill kernels (poa_*.cu).
 //
-// Every kernel runs one thread block per read.  A row's columns are
-// processed in tiles of blockDim.x: thread t owns the columns
+// K2, K4 and K5 hold a read's columns in registers across one or a few
+// warps (poa_local.cu, poa_gap_global.cu, poa_gap_local.cu) and use the
+// chain and staging helpers below.  The tiled kernels (K1, K3, K6 and the
+// superseded variants) run one thread block per read, and a row's
+// columns are processed in tiles of blockDim.x: thread t owns the columns
 // j = t + k * blockDim.x, k = 0, 1, ..., so a read of any length fits
 // one block.  blockDim.x is the stored row width rounded up to a warp
 // multiple, at most 1024.  Threads past the row's width ("dead" lanes)
@@ -24,9 +27,9 @@ namespace rgt {
 constexpr int NEG = -(1 << 28);  // poa_engine.NEG
 constexpr int GAP = 5;           // scoring.GAP
 constexpr int NCODE = 7;         // scoring table is int32[7, 7]
-// The kernels declare __launch_bounds__(MAX_THREADS, 1): up to 64
-// registers a thread.  Without the minimum block count ptxas gave K2 and
-// K3 32 registers and spilled.
+// The tiled kernels declare __launch_bounds__(MAX_THREADS, 1): up to 64
+// registers a thread.  Without the minimum block count ptxas gave two of
+// them 32 registers and spilled.
 constexpr int MAX_THREADS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr long long KEY_SHIFT = 4294967296LL;  // 2^32
@@ -153,6 +156,76 @@ __device__ __forceinline__ int key_value(long long key) {
 
 __device__ __forceinline__ unsigned key_tie(long long key) {
   return (unsigned)(key & 0xffffffffLL);
+}
+
+// The clamped in-row chain of the affine fills (K4, K5).  With
+// g = max(o + e, e), x[j+1] = max(x[j] + g, b[j]): the map of a column is
+// x -> max(x + g, b), and a run of maps composes to x -> max(x + A, B).
+// The reference's 2x2 map scan clamps every composed value to NEG; so do
+// these.  A run of s columns has A = s g, clamped (to -NEG above as well,
+// where the reference's own sums would leave int32).
+__device__ __forceinline__ int chain_steps(int s, int g) {
+  const long long v = (long long)s * g;
+  return v < NEG ? NEG : v > -NEG ? -NEG : (int)v;
+}
+
+// The map (A, B) after the state (or the earlier run's B) x, clamped.
+__device__ __forceinline__ int chain_apply(int x, int A, int B) {
+  return max(max(x + A, B), NEG);
+}
+
+// A stored row's m at a lane's columns j0 - 1 .. j0 + CW - 1 and its y
+// at j0 .. j0 + CW - 1 (0 outside the read's width).
+template <int CW>
+__device__ __forceinline__ void load_row(const int* mp, const int* yp, int j0, int Lp,
+                                         int (&vm)[CW + 1], int (&vy)[CW]) {
+  vm[0] = j0 > 0 && j0 <= Lp ? mp[j0 - 1] : 0;
+#pragma unroll
+  for (int c = 0; c < CW; ++c) {
+    const bool live = j0 + c < Lp;
+    vm[c + 1] = live ? mp[j0 + c] : 0;
+    vy[c] = live ? yp[j0 + c] : 0;
+  }
+}
+
+// Copy a warp's staged segment (`len` columns of `np` <= NP planes, SEG
+// apart in `st`) to the rows dst[0 .. np) (column 0 of the segment):
+// each lane's shared loads first, then its stores, as 16-byte items
+// where VEC.
+template <int SEG, bool VEC, int NP>
+__device__ __forceinline__ void warp_flush(const int* st, int len, int np,
+                                           int* const (&dst)[NP], int lane) {
+  constexpr int U = VEC ? (SEG / 4 + 31) / 32 : (SEG + 31) / 32;   // items a lane a plane
+#pragma unroll
+  for (int pl = 0; pl < NP; ++pl) {
+    if (pl >= np) break;
+    int* d = dst[pl];
+    if constexpr (VEC) {
+      int4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = lane + 32 * u;
+        if (4 * k < len) v[u] = reinterpret_cast<const int4*>(st + pl * SEG)[k];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = lane + 32 * u;
+        if (4 * k < len) reinterpret_cast<int4*>(d)[k] = v[u];
+      }
+    } else {
+      int v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = lane + 32 * u;
+        if (k < len) v[u] = st[pl * SEG + k];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = lane + 32 * u;
+        if (k < len) d[k] = v[u];
+      }
+    }
+  }
 }
 
 // Exchange one value with the left neighbour column across tiles:

@@ -1,15 +1,15 @@
-// Mode-2 affine-gap banded global POA fill (gap_global_abpoa.rs:11-250)
-// for Hopper, full width (poa_gap_global.cu, kWin = false) and windowed
-// (poa_gap_global_win.cu, kWin = true).
+// Mode-2 affine-gap banded global POA fill with windowed rows
+// (gap_global_abpoa.rs:11-250) for Hopper: the body of K6
+// (poa_gap_global_win.cu).  K4, the full-width fill, had this body until
+// it was redesigned (poa_gap_global.cu).
 //
-// Computes what poa_gap_engine._fill_gap_global
-// (recgraph_tpu/ops/poa_gap_engine.py:89-268) and
-// _fill_gap_global_windowed (:269-475) compute, bit for bit, for every
-// sign of the penalties o, e: the adaptive band of mode 0; Y candidates
-// as the first best over covering predecessors of m[p][j] + o and of
-// y[p][j], Y taken only when strictly better; D candidates as in mode 0;
-// the in-row (M, X) recurrence as a 2-state (max,+) affine scan clamped
-// to NEG (_affine_row_scan, :53-81); the D/L/U cascade with its
+// Computes what poa_gap_engine._fill_gap_global_windowed
+// (recgraph_tpu/ops/poa_gap_engine.py:269-475) computes, bit for bit, for
+// every sign of the penalties o, e: the adaptive band of mode 0; Y
+// candidates as the first best over covering predecessors of m[p][j] + o
+// and of y[p][j], Y taken only when strictly better; D candidates as in
+// mode 0; the in-row (M, X) recurrence as a 2-state (max,+) affine scan
+// clamped to NEG (_affine_row_scan, :53-81); the D/L/U cascade with its
 // out-of-range 'u' code when u_pred == 0 (:143-195); and three packed
 // planes (M directions, X chain, Y chain).  Row i stores W columns from
 // ws_i, as in poa_global.cuh.
@@ -31,9 +31,8 @@
 
 namespace rgt {
 
-template <bool kWin>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
-poa_gap_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
+poa_gap_global_win_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
                       const int* __restrict__ bta_, const int* __restrict__ table,
                       const int* __restrict__ codes, const int* __restrict__ pred_idx,
                       const int* __restrict__ min_pred, const int* __restrict__ r_values,
@@ -94,8 +93,8 @@ poa_gap_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
     }
     const int left = max(0, min(ms, L - r - bta));
     const int right = L > r ? min(L, max(me, L - r) + bta) : min(L, me + bta);
-    const int ws = kWin ? left / 8 * 8 : 0;
-    if (kWin && right - ws > W) ovf = true;
+    const int ws = left / 8 * 8;
+    if (right - ws > W) ovf = true;
     // band-start state (":55-58" j==0 && left==0; ":104-107" fallback)
     const int x_left = left == 0 ? o + e * (minp + 1) : 2 * o + e * (minp + 1) + e * left;
 
@@ -243,7 +242,7 @@ poa_gap_global_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
     score[b] = bv;
     last_row[b] = br;
     last_col[b] = bc;
-    if (kWin) over[b] = ovf;
+    over[b] = ovf;
   }
 }
 

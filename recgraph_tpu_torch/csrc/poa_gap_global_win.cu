@@ -18,7 +18,7 @@ extern "C" int rgt_poa_gap_global_win_fill(
     int* lefts, int* rights, int* wss, bool* over, void* stream) {
   if (B < 1 || n < 3 || Pm < 1 || Lp < 1 || W < 8 || n_cand < 1)
     return (int)cudaErrorInvalidValue;
-  rgt::poa_gap_global_kernel<true>
+  rgt::poa_gap_global_win_kernel
       <<<B, rgt::block_threads(W), 0, (cudaStream_t)stream>>>(
           seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand, n_cand,
           n, Pm, Lp, W, o, e, m, y, bsp, score, last_row, last_col, packed,

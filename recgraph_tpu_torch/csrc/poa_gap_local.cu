@@ -20,8 +20,14 @@
 //
 // (c~[0] = 0: column 0 is the (0, 0) state), a prefix maximum.  The 2x2
 // map scan of the reference clamps to NEG; the clamp never acts while
-// |o| + |e| times the read length stays below 2^27, so the two agree
-// (cuda_poa_gap_local.check_chain_range refuses larger penalties).
+// |o| + |e| times the read length stays below 2^27, so the two agree.
+// Past that (cuda_poa_gap_local.check_chain_range), the clamped form
+// (CLAMP) scans the maps x -> max(x + g, c~[j] + o + e) composed with the
+// reference's clamp (poa_common.cuh chain_apply): a map's A is its run's
+// steps, known from the run's length, so the warp scan moves B alone and
+// the warps' runs compose in order through shared memory.  Both forms
+// give the reference's outputs; the clamped one where its clamp acts too,
+// since x then only falls below values it is compared with.
 //
 // Design (one form a launch, cuda_poa_gap_local.plan picks it):
 // - A read runs on one block of w warps (w = 1 for reads up to 224
@@ -107,20 +113,6 @@ __device__ __forceinline__ int gl_pack(int dq, int uq, bool dpos, bool upos, boo
   return dq | uq << 12 | (int)dpos << 24 | (int)upos << 25 | (int)py_y << 26;
 }
 
-// A predecessor row's m at the lane's columns j0 - 1 .. j0 + CW - 1 and y
-// at j0 .. j0 + CW - 1 (0 past the read's width).
-template <int CW>
-__device__ __forceinline__ void gl_load_row(const int* mp, const int* yp, int j0, int Lp,
-                                            int (&vm)[CW + 1], int (&vy)[CW]) {
-  vm[0] = j0 > 0 && j0 <= Lp ? mp[j0 - 1] : 0;
-#pragma unroll
-  for (int c = 0; c < CW; ++c) {
-    const bool live = j0 + c < Lp;
-    vm[c + 1] = live ? mp[j0 + c] : 0;
-    vy[c] = live ? yp[j0 + c] : 0;
-  }
-}
-
 // One slot q of a start row's first-best sweeps over its predecessors,
 // in slot order; padding slots read NEG.
 template <int CW>
@@ -137,49 +129,9 @@ __device__ __forceinline__ void gl_slot(int q, int j0, const int (&vm)[CW + 1],
   }
 }
 
-// Copy the warp's staged segment (`len` columns of `np` = 3 or 5 planes,
-// SEG apart in `st`) to the planes at `at` (column 0 of the segment) and,
-// for 5, to the scratch rows `m_at`, `y_at`: each lane's shared loads
-// first, then its stores.
-template <int SEG, bool VEC>
-__device__ __forceinline__ void gl_flush(const int* st, int len, int np, int* pk, int* px,
-                                         int* py, int* m_at, int* y_at, int lane) {
-  constexpr int U = VEC ? (SEG / 4 + 31) / 32 : (SEG + 31) / 32;   // items a lane a plane
-#pragma unroll
-  for (int pl = 0; pl < 5; ++pl) {
-    if (pl >= np) break;
-    int* d = pl == 0 ? pk : pl == 1 ? px : pl == 2 ? py : pl == 3 ? m_at : y_at;
-    if constexpr (VEC) {
-      int4 v[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = lane + 32 * u;
-        if (4 * k < len) v[u] = reinterpret_cast<const int4*>(st + pl * SEG)[k];
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = lane + 32 * u;
-        if (4 * k < len) reinterpret_cast<int4*>(d)[k] = v[u];
-      }
-    } else {
-      int v[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = lane + 32 * u;
-        if (k < len) v[u] = st[pl * SEG + k];
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = lane + 32 * u;
-        if (k < len) d[k] = v[u];
-      }
-    }
-  }
-}
-
 // ONE: one warp a read, known when compiling (no cross-warp code, and
-// the register budget of a 32-thread block).
-template <int CW, bool ALL, bool ONE>
+// the register budget of a 32-thread block).  CLAMP: the clamped chain.
+template <int CW, bool ALL, bool ONE, bool CLAMP>
 __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1)
     poa_gap_local_kernel(const GlArgs a) {
   __shared__ int s_table[NCODE * NCODE];
@@ -247,9 +199,9 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
   int fm[2][CW + 1], fy[2][CW];   // PF: the current row's far predecessors (slots 0, 1)
   if (PF && start_n) {   // row 1's predecessors are row 0, kept in registers; any other is far
     const int j0 = wi * SEG + lane * CW;
-    if (pq0_n > 0) gl_load_row<CW>(msb + (size_t)sq0_n * Lp, ysb + (size_t)sq0_n * Lp, j0, Lp,
+    if (pq0_n > 0) load_row<CW>(msb + (size_t)sq0_n * Lp, ysb + (size_t)sq0_n * Lp, j0, Lp,
                                    fm[0], fy[0]);
-    if (pq1_n > 0) gl_load_row<CW>(msb + (size_t)sq1_n * Lp, ysb + (size_t)sq1_n * Lp, j0, Lp,
+    if (pq1_n > 0) load_row<CW>(msb + (size_t)sq1_n * Lp, ysb + (size_t)sq1_n * Lp, j0, Lp,
                                    fm[1], fy[1]);
   }
   for (int i = 1; i < n - 1; ++i) {
@@ -273,8 +225,12 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
     const int rpar = i & 1;
     int* st = st2 + rpar * GL_PLANES * SEG;   // staging, by row parity
 
-    int wcarry = 0;                  // max of w over the windows before
-    int left_p = 0, left_c = 0;      // the previous window's last column (ALL)
+    // fast: the max of w over the windows before; clamped: the state x
+    // entering the window (x[0] = 0)
+    int wcarry = 0;
+    // the previous window's last column (ALL): its prefix before it (fast)
+    // or its x (clamped), and its c
+    int left_p = 0, left_c = 0;
     long long wbest = LLONG_MIN;     // the warp's best (value, first column) of the row
     for (int t = 0; t < nwin; ++t) {
       const int c0 = t * win + wi * SEG;   // the warp's first column
@@ -334,7 +290,7 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
             for (int c = 0; c < CW; ++c) vy[c] = fy[q][c];
           } else {
             const int sr = q == 0 ? sq0 : sq1;
-            gl_load_row<CW>(msb + (size_t)sr * Lp, ysb + (size_t)sr * Lp, j0, Lp, vm, vy);
+            load_row<CW>(msb + (size_t)sr * Lp, ysb + (size_t)sr * Lp, j0, Lp, vm, vy);
           }
           gl_slot<CW>(q, j0, vm, vy, dpre, um, uy, dq, uq, yq);
         }
@@ -354,7 +310,7 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
               vy[c] = yu[c];
             }
           } else {
-            gl_load_row<CW>(msb + (size_t)si[q] * Lp, ysb + (size_t)si[q] * Lp, j0, Lp, vm, vy);
+            load_row<CW>(msb + (size_t)si[q] * Lp, ysb + (size_t)si[q] * Lp, j0, Lp, vm, vy);
           }
           gl_slot<CW>(q, j0, vm, vy, dpre, um, uy, dq, uq, yq);
         }
@@ -379,36 +335,43 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
           pk[c] = (int)(yu[c] > mu[c] + o) << 26;   // strict => Y
         }
       }
-      // the lane's max of w, over all its columns and over all but the last
-      int lmax = 0, lpart = 0;
+      // the lane's chain summary over all its columns and over all but the
+      // last: fast, the max of w; clamped, B of the composite map (its A
+      // is the columns' steps, chain_steps)
+      int lsum = CLAMP ? NEG : INT_MIN, lpart = lsum;
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
         const int j = j0 + c;
         const int cc = j == 0 ? 0 : max(max(dv[c], yv[c]), 0);
-        const int wv = cc + oe - (j + 1) * g;
-        if (c == CW - 1) lpart = lmax;
-        lmax = c == 0 ? wv : max(lmax, wv);
+        if (c == CW - 1) lpart = lsum;
+        if (CLAMP) {
+          lsum = c == 0 ? max(cc + oe, NEG) : chain_apply(lsum, g, cc + oe);
+        } else {
+          const int wv = cc + oe - (j + 1) * g;
+          lsum = c == 0 ? wv : max(lsum, wv);
+        }
       }
-      if (CW == 1) lpart = INT_MIN;
       const int c_last = j0 + CW - 1 == 0 ? 0 : max(max(dv[CW - 1], yv[CW - 1]), 0);
-      int incl = lmax;
+      int incl = lsum;
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
         const int y = __shfl_up_sync(FULL, incl, d);
-        if (lane >= d) incl = max(incl, y);
+        if (lane >= d) incl = CLAMP ? chain_apply(y, chain_steps(d * CW, g), incl) : max(incl, y);
       }
       int excl = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) excl = INT_MIN;
-      // the left neighbour's data: the prefix before its last column and
-      // its last column's c
-      int lp = __shfl_up_sync(FULL, max(excl, lpart), 1);
+      if (lane == 0) excl = CLAMP ? NEG : INT_MIN;
+      // the chain up to (not including) the lane's last column
+      const int part = CLAMP ? chain_apply(excl, chain_steps(CW - 1, g), lpart) : max(excl, lpart);
+      // the left neighbour's data: the prefix before its last column (fast)
+      // and its last column's c
+      int lp = __shfl_up_sync(FULL, part, 1);
       int lc = __shfl_up_sync(FULL, c_last, 1);
 
       int carry = wcarry;   // max of w over the columns before the warp
       if (w > 1) {
         if (lane == 31) {
           s_tot[kpar][wi] = incl;
-          s_part[kpar][wi] = max(excl, lpart);
+          s_part[kpar][wi] = part;
           s_clast[kpar][wi] = c_last;
         }
         __syncthreads();
@@ -422,26 +385,45 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
             bj = (int)(0x7fffffffu - key_tie(k));
           }
         }
-        const int tv = lane < w ? s_tot[kpar][lane] : INT_MIN;
-        const int before = __reduce_max_sync(FULL, lane < wi ? tv : INT_MIN);
-        const int upto = __reduce_max_sync(
-            FULL, lane < wi - 1 ? tv : lane == wi - 1 ? s_part[kpar][lane] : INT_MIN);
-        const int total = __reduce_max_sync(FULL, tv);
-        const int lastp = __reduce_max_sync(
-            FULL, lane < w - 1 ? tv : lane == w - 1 ? s_part[kpar][lane] : INT_MIN);
-        carry = max(wcarry, before);
-        if (lane == 0) {
-          if (wi > 0) {
-            lp = max(wcarry, upto);
-            lc = s_clast[kpar][wi - 1];
-          } else {
-            lp = left_p;
-            lc = left_c;
+        if (CLAMP) {
+          // the states in warp order: entering warp v, and x at the column
+          // before it (the previous window's last for v = 0)
+          const int a_w = chain_steps(32 * CW, g), a_p = chain_steps(32 * CW - 1, g);
+          int xin = wcarry, xlast = left_p;
+          for (int v = 0; v < w; ++v) {
+            if (v == wi) {
+              carry = xin;
+              if (lane == 0) lp = xlast;
+            }
+            xlast = chain_apply(xin, a_p, s_part[kpar][v]);
+            xin = chain_apply(xin, a_w, s_tot[kpar][v]);
           }
+          if (lane == 0) lc = wi > 0 ? s_clast[kpar][wi - 1] : left_c;
+          left_p = xlast;   // for the next window's first column
+          left_c = s_clast[kpar][w - 1];
+          wcarry = xin;
+        } else {
+          const int tv = lane < w ? s_tot[kpar][lane] : INT_MIN;
+          const int before = __reduce_max_sync(FULL, lane < wi ? tv : INT_MIN);
+          const int upto = __reduce_max_sync(
+              FULL, lane < wi - 1 ? tv : lane == wi - 1 ? s_part[kpar][lane] : INT_MIN);
+          const int total = __reduce_max_sync(FULL, tv);
+          const int lastp = __reduce_max_sync(
+              FULL, lane < w - 1 ? tv : lane == w - 1 ? s_part[kpar][lane] : INT_MIN);
+          carry = max(wcarry, before);
+          if (lane == 0) {
+            if (wi > 0) {
+              lp = max(wcarry, upto);
+              lc = s_clast[kpar][wi - 1];
+            } else {
+              lp = left_p;
+              lc = left_c;
+            }
+          }
+          left_p = max(wcarry, lastp);   // for the next window's first column
+          left_c = s_clast[kpar][w - 1];
+          wcarry = max(wcarry, total);
         }
-        left_p = max(wcarry, lastp);   // for the next window's first column
-        left_c = s_clast[kpar][w - 1];
-        wcarry = max(wcarry, total);
       } else if (lane == 0) {
         lp = 0;
         lc = 0;
@@ -450,30 +432,44 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
       // this row's barrier or the last __syncwarp), while this row finishes
       if (PF && start_n && i + 1 < n - 1) {
         if (pq0_n >= 0 && pq0_n != i)
-          gl_load_row<CW>(msb + (size_t)sq0_n * Lp, ysb + (size_t)sq0_n * Lp, j0, Lp, fm[0], fy[0]);
+          load_row<CW>(msb + (size_t)sq0_n * Lp, ysb + (size_t)sq0_n * Lp, j0, Lp, fm[0], fy[0]);
         if (pq1_n >= 0 && pq1_n != i)
-          gl_load_row<CW>(msb + (size_t)sq1_n * Lp, ysb + (size_t)sq1_n * Lp, j0, Lp, fm[1], fy[1]);
+          load_row<CW>(msb + (size_t)sq1_n * Lp, ysb + (size_t)sq1_n * Lp, j0, Lp, fm[1], fy[1]);
       }
 
-      // pass 2: the carry applied to the lane's columns, in order
-      int P = max(max(carry, excl), 0);
+      // pass 2: the carry applied to the lane's columns, in order: x at
+      // each column (fast: the running prefix, then the columns' own
+      // terms; clamped: the state entering the lane, then its maps)
+      int xs[CW];
+      int xl;   // x at j0 - 1
+      if (CLAMP) {
+        xs[0] = chain_apply(carry, chain_steps(lane * CW, g), excl);
+#pragma unroll
+        for (int c = 0; c + 1 < CW; ++c) {
+          const int j = j0 + c;
+          xs[c + 1] = chain_apply(xs[c], g, (j == 0 ? 0 : max(max(dv[c], yv[c]), 0)) + oe);
+        }
+        xl = __shfl_up_sync(FULL, xs[CW - 1], 1);
+        if (lane == 0) xl = lp;
+      } else {
+        int P = max(max(carry, excl), 0);
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int j = j0 + c;
+          xs[c] = j * g + P;
+          P = max(P, (j == 0 ? 0 : max(max(dv[c], yv[c]), 0)) + oe - (j + 1) * g);
+        }
+        xl = (j0 - 1) * g + max(lane == 0 ? lp : max(lp, carry), 0);
+      }
       int xp, mp_;   // the left neighbour's x and m, border-adjusted
       {
         const int jl = j0 - 1;
-        const int xl = jl * g + max(lane == 0 ? lp : max(lp, carry), 0);
         const bool bl = jl <= 0 || jl >= L;
         xp = bl ? 0 : xl;
         mp_ = bl ? 0 : max(lc, xl);
       }
       if (!ALL && w > 1 && lane == 0) m_left = mp_;   // row i's m at j0 - 1
       int lbv = INT_MIN, lbj = 0;
-      int xs[CW];   // x at each column: the running prefix, then the columns' own terms
-#pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        const int j = j0 + c;
-        xs[c] = j * g + P;
-        P = max(P, (j == 0 ? 0 : max(max(dv[c], yv[c]), 0)) + oe - (j + 1) * g);
-      }
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
         const int j = j0 + c;
@@ -534,14 +530,13 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
       if (len > 0) {
         const size_t at = plane + (size_t)i * Lp + c0;
         const int sr = ALL ? i : store;
-        int* m_at = msb + (size_t)max(sr, 0) * Lp + c0;
-        int* y_at = ysb + (size_t)max(sr, 0) * Lp + c0;
+        int* const dst[GL_PLANES] = {a.packed + at, a.packed_x + at, a.packed_y + at,
+                                     msb + (size_t)max(sr, 0) * Lp + c0,
+                                     ysb + (size_t)max(sr, 0) * Lp + c0};
         if (vec) {
-          gl_flush<SEG, true>(st, len, sr >= 0 ? 5 : 3, a.packed + at, a.packed_x + at,
-                              a.packed_y + at, m_at, y_at, lane);
+          warp_flush<SEG, true>(st, len, sr >= 0 ? 5 : 3, dst, lane);
         } else {
-          gl_flush<SEG, false>(st, len, sr >= 0 ? 5 : 3, a.packed + at, a.packed_x + at,
-                               a.packed_y + at, m_at, y_at, lane);
+          warp_flush<SEG, false>(st, len, sr >= 0 ? 5 : 3, dst, lane);
         }
       }
     }
@@ -579,11 +574,11 @@ __global__ void __launch_bounds__(ONE ? 32 : GL_THREADS, ONE ? GL_ONE_BLOCKS : 1
   }
 }
 
-template <int CW, bool ALL, bool ONE>
+template <int CW, bool ALL, bool ONE, bool CLAMP>
 int gap_local_launch(const GlArgs& a, cudaStream_t stream) {
   const int threads = 32 * a.warps;
   const int smem = threads / 32 * 2 * GL_PLANES * 32 * CW * (int)sizeof(int);
-  auto kern = poa_gap_local_kernel<CW, ALL, ONE>;
+  auto kern = poa_gap_local_kernel<CW, ALL, ONE, CLAMP>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -593,21 +588,33 @@ int gap_local_launch(const GlArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int CW>
+template <int CW, bool CLAMP>
 int gap_local_chain(const GlArgs& a, cudaStream_t stream) {
-  return a.warps == 1 ? gap_local_launch<CW, false, true>(a, stream)
-                      : gap_local_launch<CW, false, false>(a, stream);
+  return a.warps == 1 ? gap_local_launch<CW, false, true, CLAMP>(a, stream)
+                      : gap_local_launch<CW, false, false, CLAMP>(a, stream);
+}
+
+template <bool CLAMP>
+int gap_local_form(const GlArgs& a, int cw, bool full, cudaStream_t stream) {
+  if (full) return gap_local_launch<9, true, false, CLAMP>(a, stream);
+  switch (cw) {
+    case 1: return gap_local_chain<1, CLAMP>(a, stream);
+    case 3: return gap_local_chain<3, CLAMP>(a, stream);
+    case 5: return gap_local_chain<5, CLAMP>(a, stream);
+    case 7: return gap_local_chain<7, CLAMP>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rgt
 
 // cw: the columns a lane (1, 3, 5 or 7; 9 in the full form); warps:
 // the warps a read, one read a block (1 to 16; 16 in the full form);
-// full: every row's m and y in the scratch.
+// full: every row's m and y in the scratch; clamp: the clamped chain.
 extern "C" int rgt_poa_gap_local_fill(
     const int* seq, const int* L, const int* table, const int* codes, const int* node_start,
     const int* pred_idx, const int* srow, const int* store_at, int B, int n, int Pm, int Lp,
-    int o, int e, int cw, int warps, int full, int S, int* ms, int* ys,
+    int o, int e, int cw, int warps, int full, int clamp, int S, int* ms, int* ys,
     int* best_val, int* best_i, int* best_j, int* packed, int* packed_x, int* packed_y,
     void* stream) {
   using namespace rgt;
@@ -618,12 +625,6 @@ extern "C" int rgt_poa_gap_local_fill(
   const GlArgs a{seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n, Pm, Lp, o, e,
                  warps, S, ms, ys, best_val, best_i, best_j, packed, packed_x, packed_y};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (full) return gap_local_launch<9, true, false>(a, s);
-  switch (cw) {
-    case 1: return gap_local_chain<1>(a, s);
-    case 3: return gap_local_chain<3>(a, s);
-    case 5: return gap_local_chain<5>(a, s);
-    case 7: return gap_local_chain<7>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return clamp ? gap_local_form<true>(a, cw, full != 0, s)
+               : gap_local_form<false>(a, cw, full != 0, s);
 }

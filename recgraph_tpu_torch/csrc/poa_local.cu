@@ -1,21 +1,492 @@
-// Mode-1 local POA fill (K2), the main path's layout.
+// Mode-1 local linear-gap POA fill (local_poa.rs:181-255) for Hopper (K2).
 //
 // Replaces the TPU kernel recgraph_tpu/ops/pallas_poa_v5.py:251
-// fill_local_v5.  The kernel body, its design and what bounds it are in
-// poa_local.cuh; here the score scratch m and the packed plane are both
-// [B, n, Lp] int32 and row n-1 of packed is zeroed.
+// fill_local_v5 and computes what poa_engine._fill_local
+// (recgraph_tpu/ops/poa_engine.py:553-643) computes, bit for bit: the
+// transposed scoring table (sm(seq[j], lnz[i]), sm('-', lnz[i])), the zero
+// floor, start rows whose first-best sweeps over the predecessor slots
+// begin at 0 / index 0, non-start rows from row i-1, tie order D >= U >= L
+// with all-negative cells as O, column 0 and the columns past the read as
+// O, and the row-major running best that moves on a strictly greater row
+// maximum (first column).  It stores packed int32[B, n, Lp] (row n-1 all
+// 0).
+//
+// The in-row chain.  m[j] = max(A[j], m[j-1] + sm(seq[j], '-')) with
+// A[j] = max(D[j], U[j], 0) (A[0] = 0) is, with G the read's running sum
+// of sm(seq[j], '-'),
+//
+//     m[j] = G[j] + max_{k <= j} (A[k] - G[k]),
+//
+// a prefix maximum, as the JAX engine computes it (poa_engine.py:590-591,
+// no clamp): no range guard is needed.  G depends only on the read, so it
+// is computed once, before the rows, and held in registers (in the full
+// form, in a scratch row).
+//
+// Design (K5's, poa_gap_local.cu, with one plane; cuda_poa_gap_local.plan
+// lays out the launch, one form a launch):
+// - A read runs on one block of w warps (w = 1 for reads up to 224
+//   columns), each lane holding CW = 1, 3, 5 or 7 contiguous columns in
+//   registers.  A row is one pass that computes each column's A - G, a
+//   warp max scan (plus, for w > 1, the warp totals through shared memory
+//   and one block barrier), and a pass that applies the carry to the
+//   lane's columns and writes their cells.  m at the lane's first column
+//   minus one is G there plus the prefix before the lane, so no neighbour
+//   exchange is needed.  The row best is two warp reductions (value,
+//   first column); for w > 1 each warp's best goes through shared memory
+//   and is folded in after the next barrier.  No block barrier with
+//   w = 1, one a row with w > 1.
+// - Row i-1's m stays in registers: a non-start row (its one predecessor
+//   is row i-1) reads nothing from memory.  Only rows that a start row
+//   lists as a predecessor other than its row i-1 are written to a device
+//   scratch (store_at[row] >= 0, cuda_poa_gap_local.stored_rows, K5's
+//   rule), read in the start row's first pass.  (Loading them a row
+//   ahead, as K5 does, spilled registers past the 80 this form has and
+//   was 1-3 % slower on stretch chunks: H100 80GB HBM3, 700 W.)
+// - Reads past 16 warps x 224 columns take the full form: every row's m
+//   in the scratch, G in one more scratch row, the row in windows of 16
+//   warps x 9 columns a lane.
+// - A warp stages its segment of the plane (and m where the row is
+//   stored) in shared memory, two buffers by row parity, and writes it
+//   with coalesced 16-byte stores (4-byte ones where Lp is not a multiple
+//   of 4).
+//
+// What bounds it on this card: the bytes of the packed plane (4 a cell)
+// plus 4 a cell of the stored rows; as in K5 a row's latency rules (the
+// rows of a read are sequential, a row a serial chain of one warp).  The
+// one-warp form is compiled for 24 blocks an SM, so a stretch chunk of
+// 3,047 reads is resident at once on 132 SMs.
+//
+// The kernel allocates nothing, does not synchronise with the host and
+// runs on the stream it is given.
 
-#include "poa_local.cuh"
+#include "poa_common.cuh"
 
-extern "C" int rgt_poa_local_fill(
-    const int* seq, const int* L, const int* table, const int* codes,
-    const int* node_start, const int* pred_idx, int B, int n, int Pm, int Lp,
-    int* m, int* best_val, int* best_i, int* best_j, int* packed,
-    void* stream) {
-  if (B < 1 || n < 3 || Pm < 1 || Lp < 1) return (int)cudaErrorInvalidValue;
-  rgt::poa_local_kernel<int, false, false>
-      <<<B, rgt::block_threads(Lp), 0, (cudaStream_t)stream>>>(
-          seq, L, table, codes, node_start, pred_idx, n, Pm, Lp, m, packed, n,
-          best_val, best_i, best_j);
+namespace rgt {
+
+constexpr int LC_THREADS = 512;   // threads a block at most
+constexpr int LC_PLANES = 2;      // staged: packed, m
+constexpr int LC_MAX_WARPS = 16;  // warps a read
+constexpr int LC_ONE_BLOCKS = 24; // one-warp blocks an SM (85 registers a thread)
+
+struct LcArgs {
+  const int* seq;         // [B, Lp]
+  const int* L;           // [B]
+  const int* table;       // [7, 7]
+  const int* codes;       // [n]
+  const int* node_start;  // [n]
+  const int* pred_idx;    // [n, Pm] -1 padded
+  const int* srow;        // [n, Pm] scratch row of each slot's predecessor, -1 for none
+  const int* store_at;    // [n] scratch row a row is written to, -1 for none
+  int B, n, Pm, Lp;
+  int warps;              // warps a read (a block)
+  int S;                  // scratch rows a read (the full form: n rows and G's)
+  int* ms;                // [B, S, Lp]
+  int* best_val;
+  int* best_i;
+  int* best_j;
+  int* packed;
+};
+
+// A stored row's m at the lane's columns j0 - 1 .. j0 + CW - 1 (0 outside
+// the read's width).
+template <int CW>
+__device__ __forceinline__ void lc_load_row(const int* mp, int j0, int Lp, int (&vm)[CW + 1]) {
+  vm[0] = j0 > 0 && j0 <= Lp ? mp[j0 - 1] : 0;
+#pragma unroll
+  for (int c = 0; c < CW; ++c) vm[c + 1] = j0 + c < Lp ? mp[j0 + c] : 0;
+}
+
+// One slot q of a start row's first-best sweeps over its predecessors, in
+// slot order; padding slots read NEG at index 0.
+template <int CW>
+__device__ __forceinline__ void lc_slot(int q, int j0, const int (&vm)[CW + 1], int (&dpre)[CW],
+                                        int (&um)[CW], int (&dq)[CW], int (&uq)[CW]) {
+#pragma unroll
+  for (int c = 0; c < CW; ++c) {
+    const int vd = j0 + c > 0 ? vm[c] : NEG;
+    if (q == 0 || vd > dpre[c]) { dpre[c] = vd; dq[c] = q; }
+    if (q == 0 || vm[c + 1] > um[c]) { um[c] = vm[c + 1]; uq[c] = q; }
+  }
+}
+
+// ONE: one warp a read, known when compiling; ALL: the full form.
+template <int CW, bool ALL, bool ONE>
+__global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1)
+    poa_local_kernel(const LcArgs a) {
+  __shared__ int s_table[NCODE * NCODE];
+  __shared__ int s_tot[2][32];
+  __shared__ long long s_best[2][32];
+  extern __shared__ int4 s_dyn[];
+
+  constexpr int SEG = 32 * CW;
+  const int w = ONE ? 1 : a.warps, wi = ONE ? 0 : threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  for (int t = threadIdx.x; t < NCODE * NCODE; t += blockDim.x) s_table[t] = a.table[t];
+  __syncthreads();
+
+  const int n = a.n, Lp = a.Lp, Pm = a.Pm;
+  const int L = a.L[b];
+  const int* sb = a.seq + (size_t)b * Lp;
+  const size_t plane = (size_t)b * n * Lp;
+  int* st2 = reinterpret_cast<int*>(s_dyn) + (size_t)wi * 2 * LC_PLANES * SEG;
+  const int win = w * SEG;                          // columns a window
+  const int nwin = ALL ? (Lp + win - 1) / win : 1;
+  const bool vec = (Lp & 3) == 0;
+  int* msb = a.ms + (size_t)b * a.S * Lp;
+  int* gsb = msb + (size_t)(a.S - 1) * Lp;          // the full form's G row
+
+  // G, the running sum of sm(seq[j], '-'), at the lane's columns (the full
+  // form: into its scratch row, window by window); the read's codes
+  int gv[CW];
+  unsigned codes_reg = 0;   // the register form's read codes, 3 bits a column
+  {
+    int gcarry = 0;   // G before the window
+    for (int t = 0; t < nwin; ++t) {
+      const int c0 = t * win + wi * SEG;
+      const int j0 = c0 + lane * CW;
+      int sum = 0;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int sj = j0 + c < Lp ? sb[j0 + c] : GAP;
+        if (!ALL) codes_reg |= (unsigned)sj << (3 * c);
+        sum += s_table[sj * NCODE + GAP];
+        gv[c] = sum;
+      }
+      int incl = sum;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += y;
+      }
+      int carry = gcarry + incl - sum;
+      if (w > 1) {
+        if (lane == 31) s_tot[t & 1][wi] = incl;
+        __syncthreads();
+        for (int v = 0; v < w; ++v) {
+          const int tv = s_tot[t & 1][v];
+          carry += v < wi ? tv : 0;
+          gcarry += tv;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        gv[c] += carry;
+        if (ALL && j0 + c < Lp) gsb[j0 + c] = gv[c];
+      }
+    }
+  }
+
+  // rows 0 and n-1: all 0 and 'O'; row 0's scratch copy, if any, 0
+  {
+    const int s0 = a.store_at[0];
+    for (int t = 0; t < nwin; ++t) {
+      const int c0 = t * win + wi * SEG;
+      for (int k = lane; k < SEG && c0 + k < Lp; k += 32) {
+        const size_t j = c0 + k;
+        a.packed[plane + j] = 0;
+        a.packed[plane + (size_t)(n - 1) * Lp + j] = 0;
+        if (s0 >= 0) msb[(size_t)s0 * Lp + j] = 0;
+      }
+    }
+  }
+  if (w > 1) __syncthreads(); else __syncwarp();
+
+  // the register form's row i-1 (row 0: all 0) and its m left of the
+  // warp's segment (lane 0 of warps past the first)
+  int mu[CW];
+#pragma unroll
+  for (int c = 0; c < CW; ++c) mu[c] = 0;
+  int m_left = 0;
+
+  int bv = 0, bi = 0, bj = 0;   // the running best (w = 1: every lane; else thread 0)
+  // the row's tables, loaded a row ahead: code, start flag, scratch row,
+  // and the first two slots' predecessors and scratch rows
+  int code_n = a.codes[1], start_n = a.node_start[1], store_n = a.store_at[1];
+  int pq0_n = a.pred_idx[Pm], sq0_n = a.srow[Pm];
+  int pq1_n = Pm > 1 ? a.pred_idx[Pm + 1] : -1, sq1_n = Pm > 1 ? a.srow[Pm + 1] : -1;
+  for (int i = 1; i < n - 1; ++i) {
+    const int code = code_n, store = store_n, pq0 = pq0_n, pq1 = pq1_n;
+    const bool is_start = start_n != 0;
+    const int sq0 = sq0_n, sq1 = sq1_n;
+    if (i + 1 < n - 1) {
+      code_n = a.codes[i + 1];
+      start_n = a.node_start[i + 1];
+      store_n = a.store_at[i + 1];
+      pq0_n = a.pred_idx[(size_t)(i + 1) * Pm];
+      sq0_n = a.srow[(size_t)(i + 1) * Pm];
+      if (Pm > 1) {
+        pq1_n = a.pred_idx[(size_t)(i + 1) * Pm + 1];
+        sq1_n = a.srow[(size_t)(i + 1) * Pm + 1];
+      }
+    }
+    const int* pi = a.pred_idx + (size_t)i * Pm;
+    const int* si = a.srow + (size_t)i * Pm;
+    const int gnode = s_table[GAP * NCODE + code];   // transposed: sm('-', lnz[i])
+    const int rpar = i & 1;
+    int* st = st2 + rpar * LC_PLANES * SEG;   // staging, by row parity
+
+    int wcarry = INT_MIN;            // the max of A - G over the windows before
+    long long wbest = LLONG_MIN;     // the warp's best (value, first column) of the row
+    for (int t = 0; t < nwin; ++t) {
+      const int c0 = t * win + wi * SEG;   // the warp's first column
+      const int j0 = c0 + lane * CW;       // the lane's first column
+      const int kpar = ALL ? ((i * nwin + t) & 1) : rpar;
+      if (ALL) st = st2 + kpar * LC_PLANES * SEG;
+      unsigned cr = codes_reg;
+      int ml;   // row i-1's m at j0 - 1
+      if (ALL) {
+        cr = 0;
+        const int* mp = msb + (size_t)(i - 1) * Lp;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int j = j0 + c;
+          const bool live = j < Lp;
+          cr |= (unsigned)(live ? sb[j] : GAP) << (3 * c);
+          mu[c] = live ? mp[j] : 0;
+          gv[c] = live ? gsb[j] : 0;
+        }
+        ml = j0 > 0 && j0 <= Lp ? mp[j0 - 1] : 0;
+      } else {
+        ml = __shfl_up_sync(FULL, mu[CW - 1], 1);
+        if (lane == 0) ml = m_left;
+      }
+
+      // pass 1: each column's D and U values, and A - G for the chain
+      int dv[CW], uv[CW], pk[CW];
+      if (is_start) {
+        int dpre[CW], um[CW], dq[CW], uq[CW];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          dpre[c] = um[c] = NEG;
+          dq[c] = uq[c] = 0;
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q >= Pm) break;
+          const int p = q == 0 ? pq0 : pq1;
+          int vm[CW + 1];   // vm[c + 1]: m[p][j0 + c]; vm[0]: m[p][j0 - 1]
+          if (p < 0) {
+#pragma unroll
+            for (int c = 0; c <= CW; ++c) vm[c] = NEG;
+          } else if (!ALL && p == i - 1) {
+            vm[0] = ml;
+#pragma unroll
+            for (int c = 0; c < CW; ++c) vm[c + 1] = mu[c];
+          } else {
+            lc_load_row<CW>(msb + (size_t)(q == 0 ? sq0 : sq1) * Lp, j0, Lp, vm);
+          }
+          lc_slot<CW>(q, j0, vm, dpre, um, dq, uq);
+        }
+        for (int q = 2; q < Pm; ++q) {
+          const int p = pi[q];
+          int vm[CW + 1];
+          if (p < 0) {
+#pragma unroll
+            for (int c = 0; c <= CW; ++c) vm[c] = NEG;
+          } else if (!ALL && p == i - 1) {
+            vm[0] = ml;
+#pragma unroll
+            for (int c = 0; c < CW; ++c) vm[c + 1] = mu[c];
+          } else {
+            lc_load_row<CW>(msb + (size_t)si[q] * Lp, j0, Lp, vm);
+          }
+          lc_slot<CW>(q, j0, vm, dpre, um, dq, uq);
+        }
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int sj = (cr >> (3 * c)) & 7;
+          dv[c] = max(dpre[c], 0) + s_table[sj * NCODE + code];
+          uv[c] = max(um[c], 0) + gnode;
+          pk[c] = dq[c] | uq[c] << 12 | (int)(dpre[c] > 0) << 24 | (int)(um[c] > 0) << 25;
+        }
+      } else {
+        // non-start rows: row i-1 alone
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int sj = (cr >> (3 * c)) & 7;
+          dv[c] = (j0 + c > 0 ? (c > 0 ? mu[c - 1] : ml) : NEG) + s_table[sj * NCODE + code];
+          uv[c] = mu[c] + gnode;
+          pk[c] = 0;
+        }
+      }
+      // the lane's max of A - G, then the warp's exclusive prefix
+      int lmax = INT_MIN;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int A = j0 + c == 0 ? 0 : max(max(dv[c], uv[c]), 0);
+        lmax = max(lmax, A - gv[c]);
+      }
+      int incl = lmax;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl = max(incl, y);
+      }
+      int excl = __shfl_up_sync(FULL, incl, 1);
+      if (lane == 0) excl = INT_MIN;
+
+      int carry = wcarry;   // the max of A - G over the columns before the warp
+      if (w > 1) {
+        if (lane == 31) s_tot[kpar][wi] = incl;
+        __syncthreads();
+        if (threadIdx.x == 0 && t == 0 && i > 1) {   // the previous row's best
+          long long k = LLONG_MIN;
+          for (int v = 0; v < w; ++v) k = max(k, s_best[rpar ^ 1][v]);
+          const int rmax = key_value(k);
+          if (rmax > bv) {
+            bv = rmax;
+            bi = i - 1;
+            bj = (int)(0x7fffffffu - key_tie(k));
+          }
+        }
+        const int tv = lane < w ? s_tot[kpar][lane] : INT_MIN;
+        carry = max(wcarry, __reduce_max_sync(FULL, lane < wi ? tv : INT_MIN));
+        wcarry = max(wcarry, __reduce_max_sync(FULL, tv));
+      }
+      // pass 2: m at each column from the running prefix, and the cells
+      int P = max(carry, excl);
+      int mprev;   // m at j0 - 1: G there plus the prefix before the lane
+      {
+        const int jl = j0 - 1;
+        const int gl = gv[0] - s_table[((cr & 7) * NCODE) + GAP];
+        mprev = jl <= 0 ? (jl == 0 ? 0 : NEG) : jl >= L ? NEG : gl + P;
+      }
+      if (!ALL && w > 1 && lane == 0) m_left = mprev;   // row i's m at j0 - 1
+      int lbv = INT_MIN, lbj = 0;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int j = j0 + c;
+        const int sj = (cr >> (3 * c)) & 7;
+        const int A = j == 0 ? 0 : max(max(dv[c], uv[c]), 0);
+        P = max(P, A - gv[c]);
+        const bool valid = j < L;
+        const int mrow = j == 0 ? 0 : valid ? gv[c] + P : NEG;
+        const int l_val = mprev + s_table[sj * NCODE + GAP];
+        int didx = i - 1, uidx = i - 1;
+        if (is_start) {   // uniform over the warp
+          const int pkc = pk[c];
+          const int dq = pkc & 0xfff, uq = (pkc >> 12) & 0xfff;
+          didx = (pkc >> 24) & 1 ? max(dq == 0 ? pq0 : dq == 1 ? pq1 : pi[dq], 0) : 0;
+          uidx = (pkc >> 25) & 1 ? max(uq == 0 ? pq0 : uq == 1 ? pq1 : pi[uq], 0) : 0;
+        }
+        // directions, zero floor (local_poa.rs:222-233); D >= U >= L
+        const bool d_ge_u = dv[c] >= uv[c];
+        const bool isD = d_ge_u && dv[c] >= l_val;
+        const bool isU = !d_ge_u && uv[c] >= l_val;
+        const int cell = isD ? didx * 16 + (sj == code ? DIR_D : DIR_LOW_D)
+                       : isU ? uidx * 16 + DIR_U : i * 16 + DIR_L;
+        const bool off = j == 0 || !valid || (dv[c] < 0 && uv[c] < 0 && l_val < 0);
+        const bool better = valid && mrow > lbv;
+        lbj = better ? j : lbj;
+        lbv = better ? mrow : lbv;
+        const int k = lane * CW + c;
+        st[k] = off ? 0 : cell;
+        st[SEG + k] = mrow;
+        if (!ALL) mu[c] = mrow;
+        mprev = mrow;
+      }
+
+      // the row's best: the warp's (value, first column), then the row's
+      const int vmax = __reduce_max_sync(FULL, lbv);
+      const unsigned jmin = __reduce_min_sync(FULL, lbv == vmax ? (unsigned)lbj : 0xffffffffu);
+      if (vmax != INT_MIN) {
+        const long long key = make_key(vmax, 0x7fffffffu - jmin);
+        wbest = key > wbest ? key : wbest;
+      }
+
+      // the staged segment to the plane (and the scratch), coalesced; the
+      // staging alternates between two buffers, so one __syncwarp a row
+      __syncwarp();
+      const int len = min(SEG, Lp - c0);
+      if (len > 0) {
+        const size_t at = plane + (size_t)i * Lp + c0;
+        const int sr = ALL ? i : store;
+        int* const dst[LC_PLANES] = {a.packed + at, msb + (size_t)max(sr, 0) * Lp + c0};
+        if (vec) {
+          warp_flush<SEG, true>(st, len, sr >= 0 ? 2 : 1, dst, lane);
+        } else {
+          warp_flush<SEG, false>(st, len, sr >= 0 ? 2 : 1, dst, lane);
+        }
+      }
+    }
+
+    if (w == 1) {
+      const int rmax = key_value(wbest);
+      if (wbest != LLONG_MIN && rmax > bv) {
+        bv = rmax;
+        bi = i;
+        bj = (int)(0x7fffffffu - key_tie(wbest));
+      }
+    } else {
+      if (lane == 0) s_best[rpar][wi] = wbest;
+      if (ALL) __syncthreads();   // publishes the row's scratch to every warp
+    }
+  }
+
+  if (w > 1) {
+    __syncthreads();
+    if (threadIdx.x == 0 && n > 2) {
+      long long k = LLONG_MIN;
+      for (int v = 0; v < w; ++v) k = max(k, s_best[(n - 2) & 1][v]);
+      const int rmax = key_value(k);
+      if (rmax > bv) {
+        bv = rmax;
+        bi = n - 2;
+        bj = (int)(0x7fffffffu - key_tie(k));
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    a.best_val[b] = bv;
+    a.best_i[b] = bi;
+    a.best_j[b] = bj;
+  }
+}
+
+template <int CW, bool ALL, bool ONE>
+int local_launch(const LcArgs& a, cudaStream_t stream) {
+  const int threads = 32 * a.warps;
+  const int smem = threads / 32 * 2 * LC_PLANES * 32 * CW * (int)sizeof(int);
+  auto kern = poa_local_kernel<CW, ALL, ONE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<a.B, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int CW>
+int local_chain(const LcArgs& a, cudaStream_t stream) {
+  return a.warps == 1 ? local_launch<CW, false, true>(a, stream)
+                      : local_launch<CW, false, false>(a, stream);
+}
+
+}  // namespace rgt
+
+// cw: the columns a lane (1, 3, 5 or 7; 9 in the full form); warps: the
+// warps a read, one read a block (1 to 16; 16 in the full form); full:
+// every row's m in the scratch (S = n + 1: G's row last).
+extern "C" int rgt_poa_local_fill(
+    const int* seq, const int* L, const int* table, const int* codes, const int* node_start,
+    const int* pred_idx, const int* srow, const int* store_at, int B, int n, int Pm, int Lp,
+    int cw, int warps, int full, int S, int* ms, int* best_val, int* best_i, int* best_j,
+    int* packed, void* stream) {
+  using namespace rgt;
+  if (B < 1 || n < 3 || Pm < 1 || Pm > 4095 || Lp < 1 || S < 1 || warps < 1 ||
+      warps > LC_MAX_WARPS || 32 * warps > LC_THREADS || (!full && Lp > 32 * cw * warps) ||
+      (full && (cw != 9 || warps != LC_MAX_WARPS || S != n + 1)))
+    return (int)cudaErrorInvalidValue;
+  const LcArgs a{seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n, Pm, Lp,
+                 warps, S, ms, best_val, best_i, best_j, packed};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (full) return local_launch<9, true, false>(a, s);
+  switch (cw) {
+    case 1: return local_chain<1>(a, s);
+    case 3: return local_chain<3>(a, s);
+    case 5: return local_chain<5>(a, s);
+    case 7: return local_chain<7>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

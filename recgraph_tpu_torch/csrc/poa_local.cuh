@@ -1,6 +1,8 @@
 // Mode-1 local POA fill (local_poa.rs:181-255) for Hopper: the kernel
-// body of K2 (poa_local.cu) and of the superseded layouts of the same
-// function (poa_local_variants.cu: K13, K15, K16, K17).
+// body of the superseded TPU layouts of the function
+// (poa_local_variants.cu: K13, K15, K16, K17).  K2, the main path's
+// mode-1 fill, has its own kernel since it was redesigned (poa_local.cu);
+// this body was K2's before that.
 //
 // Computes what poa_engine._fill_local
 // (recgraph_tpu/ops/poa_engine.py:553-643) computes, bit for bit: the
@@ -9,10 +11,8 @@
 // D >= U >= L with all-negative cells as O, and the row-major running
 // best that moves on a strictly greater row maximum (first column).
 //
-// The output layout is a template flag, so each TPU kernel's layout is
-// written by the kernel itself and K2's address arithmetic stays fixed:
-// K2 stores packed [B, n, Lp] (kRowsFirst = false); the TPU layouts are
-// [n_store, B, Lp] (kRowsFirst), of element type PT, and rows [n-1,
+// Each TPU kernel's layout is written by the kernel itself: the TPU
+// layouts are [n_store, B, Lp], of element type PT, and rows [n-1,
 // n_store) of the output plane are zeroed.  The score plane m (int32,
 // the row history) is a [B, n, Lp] scratch, except with kScoresOnly
 // (K16), where m in the rows-first layout is the output and no packed
@@ -41,7 +41,7 @@
 namespace rgt {
 namespace {  // internal linkage: each .cu that launches it has its own copy
 
-template <typename PT, bool kScoresOnly, bool kRowsFirst>
+template <typename PT, bool kScoresOnly>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 poa_local_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
                  const int* __restrict__ table, const int* __restrict__ codes,
@@ -65,9 +65,9 @@ poa_local_kernel(const int* __restrict__ seq, const int* __restrict__ L_,
   // rows-first planes: rows of B * Lp, read b at lane offset b * Lp
   const size_t rows_first = (size_t)gridDim.x * Lp;
   const size_t m_row = kScoresOnly ? rows_first : (size_t)Lp;
-  const size_t pk_row = kRowsFirst ? rows_first : (size_t)Lp;
+  const size_t pk_row = rows_first;
   int* mb = m + (kScoresOnly ? (size_t)b * Lp : (size_t)b * n * Lp);
-  PT* pb = kScoresOnly ? nullptr : packed + (kRowsFirst ? (size_t)b * Lp : (size_t)b * n * Lp);
+  PT* pb = kScoresOnly ? nullptr : packed + (size_t)b * Lp;
   int bv = 0, bi = 0, bjj = 0;  // running best (thread 0)
 
   for (int i = 0; i < n - 1; ++i) {

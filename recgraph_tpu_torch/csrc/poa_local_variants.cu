@@ -1,5 +1,6 @@
 // The superseded TPU generations of the mode-1 fill, each in its own
-// output layout, through K2's kernel body (poa_local.cuh).
+// output layout, through one kernel body (poa_local.cuh, K2's before
+// K2 was redesigned).
 //
 // They compute K2's function; only what they store differs, and the
 // kernel writes each layout itself (no transposing copy afterwards):
@@ -17,8 +18,8 @@
 // Rows [n-1, n_store) of the output plane are zeroed; the wrappers
 // (ops/cuda_poa_variants.py) choose n_store as the TPU kernels pad their
 // rows.  Except for K16, m is an int32[B, n, Lp] scratch the wrapper
-// allocates.  What bounds them is K2's: one block per read, latency-bound
-// on its per-row barriers.
+// allocates.  What bounds them: one block per read, latency-bound on its
+// per-row barriers.
 
 #include "poa_local.cuh"
 
@@ -31,7 +32,7 @@ int launch(const int* seq, const int* L, const int* table, const int* codes,
            int* best_j, void* stream) {
   if (B < 1 || n < 3 || Pm < 1 || Lp < 1 || n_store < n - 1)
     return (int)cudaErrorInvalidValue;
-  rgt::poa_local_kernel<PT, kScoresOnly, true>
+  rgt::poa_local_kernel<PT, kScoresOnly>
       <<<B, rgt::block_threads(Lp), 0, (cudaStream_t)stream>>>(
           seq, L, table, codes, node_start, pred_idx, n, Pm, Lp, m, packed,
           n_store, best_val, best_i, best_j);

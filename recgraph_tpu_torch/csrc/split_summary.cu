@@ -16,7 +16,9 @@
 // farg[b, i, j] != rarg[b, k, j], to what the take/tie chain reads:
 // col_max, the smallest flat index i * I + k at the max, whether an
 // onedge pair (fwe[i] and rve[k]) is at the max, and the smallest such
-// flat index.  A column with no valid pair has col_max NEGF, flat_plain
+// flat index.  The kernel orders pairs by the key (i << 32) | k, which
+// orders them as the flat index does (k < I), in 64 bits, so any I
+// works; the per-pair entry writes the flat index as int64.  A column with no valid pair has col_max NEGF, flat_plain
 // 0 and the edge flags of the whole plane (`edge0`, from the wrapper).
 // Every f32 operation rounds as the XLA expression does: __fmul_rn and
 // __fadd_rn keep nvcc from contracting r * d + R into an FMA, which
@@ -72,15 +74,23 @@ constexpr int S1_WARPS = S1_THREADS / 32;
 constexpr int S1_WINDOW = 2 * S1_THREADS;   // rows a block stages at once, two a thread
 constexpr int S1_FR = 8;           // forward rows a warp holds in registers
 constexpr float NEGF = -3.0e38f;   // recombination_engine.NEGF
-constexpr int BIG = INT_MAX;       // above every flat index (I * I - 1 < INT_MAX)
-constexpr int MAX_ROWS = 46340;    // flat indices i * I + k stay in int32
+constexpr long long BIG = LLONG_MAX;   // above every pair key (i << 32) | k
 constexpr int ROW_BYTES = 24;      // one compacted row in shared memory
 constexpr size_t SMEM_MAX = 226 * 1024;   // dynamic shared memory a block may take
 
 struct Best {
   float v;
-  int flat, edge;   // smallest flat index at v; smallest onedge one (BIG: none)
+  long long flat, edge;   // smallest pair key at v; smallest onedge one (BIG: none)
 };
+
+// The pair key of rows (i, k) and the flat index i * I + k of a key.
+__device__ __forceinline__ long long pair_key(int i, int k) {
+  return (long long)i << 32 | (long long)k;
+}
+
+__device__ __forceinline__ long long key_flat(long long key, int I) {
+  return (key >> 32) * (long long)I + (key & 0xffffffffLL);
+}
 
 __device__ __forceinline__ Best best_of(const Best& a, const Best& b) {
   if (a.v > b.v) return a;
@@ -110,7 +120,8 @@ struct SplitIn {
   const int* ids;
   const unsigned char *fwe, *rve;
   float R, r;
-  int I, Lp, edge0;
+  int I, Lp;
+  long long edge0;   // the pair key of the first onedge pair, -1: none
 };
 
 // One side's compacted rows in shared memory: (summary as f32, dfs, dfe,
@@ -231,7 +242,7 @@ __device__ __forceinline__ void pair_rows(const SplitIn& in, const Rows& F, int 
           for (int q = 0; q < S1_FR; ++q) {
             if (c[q] >= me.v && ra != fa[q] && rid != fid[q]) {
               const int fi = F.info[g + q];
-              const int f = (fi & INT_MAX) * in.I + (ki & INT_MAX);
+              const long long f = pair_key(fi & INT_MAX, ki & INT_MAX);
               const bool e = (fi & ki) < 0;
               if (c[q] > me.v) {
                 me = Best{c[q], f, e ? f : BIG};
@@ -299,8 +310,8 @@ __device__ Best eval_pair(const SplitIn& in, int b, int j, const Rows& F, int ca
 
 __global__ void __launch_bounds__(S1_THREADS)
 split_summary_kernel(SplitIn in, const int* __restrict__ bidx, const int* __restrict__ cols,
-                     int capf, int capr, float* col_max, int* edge_any, int* flat_edge,
-                     int* flat_plain) {
+                     int capf, int capr, float* col_max, int* edge_any, long long* flat_edge,
+                     long long* flat_plain) {
   extern __shared__ __align__(16) unsigned char s_rows[];
   __shared__ int s_cnt[2 * S1_WARPS];
   __shared__ Best s_warp[S1_WARPS];
@@ -310,15 +321,16 @@ split_summary_kernel(SplitIn in, const int* __restrict__ bidx, const int* __rest
   const Best me = eval_pair(in, bidx[p], cols[p], F, capf, Rv, capr, s_cnt, s_warp);
   if (threadIdx.x == 0) {
     col_max[p] = me.v;
-    flat_plain[p] = me.flat;
+    flat_plain[p] = key_flat(me.flat, in.I);
     edge_any[p] = me.edge != BIG;
-    flat_edge[p] = me.edge != BIG ? me.edge : 0;
+    flat_edge[p] = me.edge != BIG ? key_flat(me.edge, in.I) : 0;
   }
 }
 
-// Per-read state of the guided entry, int32 each: [3, B] (the column
-// cursor, the blocks finished, the key of M_b) and [5, B, Lp] per
-// column (col_max bits, edge_any, flat_edge, flat_plain, evaluated).
+// Per-read state of the guided entry: int32 [3, B] (the column cursor,
+// the blocks finished, the key of M_b) and, per column, int32 [3, B, Lp]
+// (col_max bits, edge_any, evaluated) and int64 [2, B, Lp] (the pair
+// keys of flat_edge and flat_plain).
 struct Guided {
   const float* ubs;      // [B, Lp] ub - R of the read's columns in falling order
   const int* order;      // [B, Lp] their column indices
@@ -328,7 +340,8 @@ struct Guided {
   int* cursor;
   int* finished;
   int* mkey;
-  int *cm, *ea, *fe, *fp, *done;
+  int *cm, *ea, *done;
+  long long *fe, *fp;
   int* out;              // [7, B]: best bits, taken, fen, rsn, fp, rp, col
   unsigned long long* pairs;   // evaluated pairs (metrics.device_counter), or null
 };
@@ -340,13 +353,15 @@ __device__ void replay(const SplitIn& in, const Guided& g, int b) {
   const size_t row = (size_t)b * in.Lp;
   float best = g.init[b];
   bool edge = false, taken = false;
-  int col = 0, flat = 0;
+  int col = 0;
+  long long flat = 0;
   for (int j0 = 0; j0 < in.Lp; j0 += 32) {   // 32 columns' summaries at once, one a lane
     const int j = j0 + lane;
     const bool d = j < in.Lp && __ldcg(g.done + row + j) != 0;
     unsigned m = __ballot_sync(0xffffffffu, d);
     if (m == 0) continue;
-    int cmj = 0, eaj = 0, fej = 0, fpj = 0;
+    int cmj = 0, eaj = 0;
+    long long fej = 0, fpj = 0;
     if (d) {
       cmj = __ldcg(g.cm + row + j);
       eaj = __ldcg(g.ea + row + j);
@@ -358,7 +373,8 @@ __device__ void replay(const SplitIn& in, const Guided& g, int b) {
       m &= m - 1;
       const float cv = __int_as_float(__shfl_sync(0xffffffffu, cmj, l));
       const bool ea = __shfl_sync(0xffffffffu, eaj, l) != 0;
-      const int fe = __shfl_sync(0xffffffffu, fej, l), fp = __shfl_sync(0xffffffffu, fpj, l);
+      const long long fe = __shfl_sync(0xffffffffu, fej, l);
+      const long long fp = __shfl_sync(0xffffffffu, fpj, l);
       const bool gt = cv > best;
       if (gt || (cv == best && !edge && ea)) {
         const bool use_edge = gt ? ea : true;
@@ -371,7 +387,7 @@ __device__ void replay(const SplitIn& in, const Guided& g, int b) {
     }
   }
   if (lane == 0) {
-    const int wi = flat / in.I, wk = flat % in.I;
+    const int wi = (int)(flat >> 32), wk = (int)(flat & 0xffffffffLL);
     const size_t cell = (size_t)b * in.I * in.Lp + col;
     const int B = g.B;
     g.out[b] = __float_as_int(best);
@@ -491,7 +507,7 @@ cudaError_t allow_smem(K kern, size_t smem) {
 }
 
 inline bool bad_caps(int I, int capf, int capr) {
-  return I < 1 || I > MAX_ROWS || capf < S1_WINDOW || capr < S1_WINDOW ||
+  return I < 1 || capf < S1_WINDOW || capr < S1_WINDOW ||
          smem_bytes(capf, capr) > SMEM_MAX;
 }
 
@@ -501,8 +517,9 @@ extern "C" int rgt_split_summary(
     const int* fmax, const int* farg, const unsigned char* vf, const int* rmax,
     const int* rarg, const unsigned char* vr, const float* dfs, const float* dfe,
     const int* ids, const unsigned char* fwe, const unsigned char* rve, float R, float r,
-    const int* bidx, const int* cols, int K, int I, int Lp, int edge0, int capf, int capr,
-    float* col_max, int* edge_any, int* flat_edge, int* flat_plain, void* stream) {
+    const int* bidx, const int* cols, int K, int I, int Lp, long long edge0, int capf,
+    int capr, float* col_max, int* edge_any, long long* flat_edge, long long* flat_plain,
+    void* stream) {
   if (K < 1 || Lp < 1 || rgt::bad_caps(I, capf, capr)) return (int)cudaErrorInvalidValue;
   const size_t smem = rgt::smem_bytes(capf, capr);
   cudaError_t err = rgt::allow_smem(rgt::split_summary_kernel, smem);
@@ -519,8 +536,8 @@ extern "C" int rgt_split_guided(
     const int* rarg, const unsigned char* vr, const float* dfs, const float* dfe,
     const int* ids, const unsigned char* fwe, const unsigned char* rve, float R, float r,
     const float* ubs, const int* order, const int* ncand, const float* init, int B, int I,
-    int Lp, int edge0, int C, int capf, int capr, int* state, int* cols, int* out,
-    unsigned long long* pairs, void* stream) {
+    int Lp, long long edge0, int C, int capf, int capr, int* state, int* cols,
+    long long* flats, int* out, unsigned long long* pairs, void* stream) {
   if (B < 1 || Lp < 1 || C < 1 || (long long)B * C > INT_MAX ||
       rgt::bad_caps(I, capf, capr))
     return (int)cudaErrorInvalidValue;
@@ -531,8 +548,7 @@ extern "C" int rgt_split_guided(
                         I, Lp, edge0};
   const size_t plane = (size_t)B * Lp;
   const rgt::Guided g{ubs, order, ncand, init, B, C, state, state + B, state + 2 * B,
-                      cols, cols + plane, cols + 2 * plane, cols + 3 * plane, cols + 4 * plane,
-                      out, pairs};
+                      cols, cols + plane, cols + 2 * plane, flats, flats + plane, out, pairs};
   rgt::split_guided_kernel<<<B * C, rgt::S1_THREADS, smem, (cudaStream_t)stream>>>(
       in, g, capf, capr);
   return (int)cudaGetLastError();

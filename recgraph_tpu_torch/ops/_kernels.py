@@ -43,9 +43,10 @@ _SIGNATURES = {
     # ... Lp, W, m, bsp, score, last_row, last_col, packed, lefts,
     # rights, wss, over, stream
     "rgt_poa_global_win_fill": [_P] * 9 + [_I] * 6 + [_P] * 10 + [_P],
-    # seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp, m,
-    # best_val, best_i, best_j, packed, stream
-    "rgt_poa_local_fill": [_P] * 6 + [_I] * 4 + [_P] * 5 + [_P],
+    # seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n,
+    # Pm, Lp, cw, warps, full, S, ms, best_val, best_i, best_j, packed,
+    # stream
+    "rgt_poa_local_fill": [_P] * 8 + [_I] * 8 + [_P] * 5 + [_P],
     # K13, K17: seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp,
     # n_store, m, best_val, best_i, best_j, packed, stream
     "rgt_poa_local_v1_fill": [_P] * 6 + [_I] * 5 + [_P] * 5 + [_P],
@@ -58,17 +59,18 @@ _SIGNATURES = {
     # n_cand, B, n, Pm, Lp, m, bsp, score, last_row, last_col, packed,
     # wss, stream
     "rgt_poa_global_v1_fill": [_P] * 9 + [_I] * 5 + [_P] * 7 + [_P],
-    # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
-    # n_cand, B, n, Pm, Lp, o, e, m, y, bsp, score, last_row, last_col,
-    # packed, packed_x, packed_y, lefts, rights, wss, stream
-    "rgt_poa_gap_global_fill": [_P] * 9 + [_I] * 7 + [_P] * 12 + [_P],
+    # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand, srow,
+    # store_at, n_cand, B, n, Pm, Lp, o, e, cw, warps, full, clamp, S, ms,
+    # ys, bsp, mlast, score, last_row, last_col, packed, packed_x,
+    # packed_y, lefts, rights, stream
+    "rgt_poa_gap_global_fill": [_P] * 11 + [_I] * 12 + [_P] * 12 + [_P],
     # ... Lp, W, o, e, m, y, bsp, score, last_row, last_col, packed,
     # packed_x, packed_y, lefts, rights, wss, over, stream
     "rgt_poa_gap_global_win_fill": [_P] * 9 + [_I] * 8 + [_P] * 13 + [_P],
     # seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n,
-    # Pm, Lp, o, e, cw, warps, full, S, ms, ys, best_val, best_i, best_j,
-    # packed, packed_x, packed_y, stream
-    "rgt_poa_gap_local_fill": [_P] * 8 + [_I] * 10 + [_P] * 8 + [_P],
+    # Pm, Lp, o, e, cw, warps, full, clamp, S, ms, ys, best_val, best_i,
+    # best_j, packed, packed_x, packed_y, stream
+    "rgt_poa_gap_local_fill": [_P] * 8 + [_I] * 11 + [_P] * 8 + [_P],
     # seq, table, codes, grep, gpred, pslot, gcount, B, n, P, Lp, Gd,
     # semiglobal, cluster, threads, smem, smem_form, cw, scratch, stride, A,
     # stream
@@ -87,13 +89,15 @@ _SIGNATURES = {
     # stream
     "rgt_pathwise_rev_fill": [_P] * 9 + [_I] * 11 + [_P, _LL, _P] + [_P],
     # fmax, farg, vf, rmax, rarg, vr, dfs, dfe, ids, fwe, rve, R, r,
-    # bidx, cols, K, I, Lp, edge0, capf, capr, col_max, edge_any,
-    # flat_edge, flat_plain, stream
-    "rgt_split_summary": [_P] * 11 + [_F] * 2 + [_P] * 2 + [_I] * 6 + [_P] * 4 + [_P],
+    # bidx, cols, K, I, Lp, edge0 (a pair key), capf, capr, col_max,
+    # edge_any, flat_edge, flat_plain, stream
+    "rgt_split_summary": [_P] * 11 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_LL] + [_I] * 2
+    + [_P] * 4 + [_P],
     # fmax, farg, vf, rmax, rarg, vr, dfs, dfe, ids, fwe, rve, R, r, ubs,
-    # order, ncand, init, B, I, Lp, edge0, C, capf, capr, state, cols,
-    # out, pairs, stream
-    "rgt_split_guided": [_P] * 11 + [_F] * 2 + [_P] * 4 + [_I] * 7 + [_P] * 4 + [_P],
+    # order, ncand, init, B, I, Lp, edge0 (a pair key), C, capf, capr,
+    # state, cols, flats, out, pairs, stream
+    "rgt_split_guided": [_P] * 11 + [_F] * 2 + [_P] * 4 + [_I] * 3 + [_LL] + [_I] * 3
+    + [_P] * 5 + [_P],
     # fmax, vf, rmax, vr, wf, wr, B, I, Lp, ub, stream
     "rgt_split_bound": [_P] * 6 + [_I] * 3 + [_P] + [_P],
     # capf, capr -> blocks of the guided kernel an SM holds, or -error

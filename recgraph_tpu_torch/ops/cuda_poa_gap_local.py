@@ -3,10 +3,10 @@
 Replaces ``recgraph_tpu/ops/pallas_gap_local.py:271 fill_gap_local_v2``.
 Its plain version is ``poa_gap_engine.fill_gap_local_plain``; both
 return (best_val, best_i, best_j, packed, packed_x, packed_y
-int32[B, n, Lp]) and agree bit for bit for every sign of the penalties
-while (|o| + |e|) x Lp stays below 2^27 (:func:`check_chain_range`
-refuses the rest).  ``metrics.LAUNCHES["poa_gap_local"]`` counts the
-launches.
+int32[B, n, Lp]) and agree bit for bit for every sign of the penalties:
+the kernel's prefix-max chain where it is exact, its clamped chain past
+that (:func:`check_chain_range` picks).
+``metrics.LAUNCHES["poa_gap_local"]`` counts the launches.
 
 :func:`plan` lays out a launch (warps a read, columns a lane, register or
 full form; one read a block) and :func:`stored_rows` picks the rows
@@ -63,17 +63,19 @@ def plan(B: int, Lp: int, sms: int) -> Plan:
     return Plan(MAX_WARPS, FULL_COLS, True)
 
 
-def stored_rows(dg, full: bool = False):
-    """The rows whose m and y K5 writes to its device scratch, on the
-    graph's device: (store_at int32[n], the scratch row each row is
-    written to or -1; srow int32[n, Pm], the scratch row of each slot's
-    predecessor that a start row reads from the scratch, or -1; S, the
-    scratch rows a read, at least 1).
+def stored_rows(dg, full: bool = False, every_row: bool = False):
+    """The rows whose scratch rows (m and y for K4 and K5, m for K2) a
+    warp-layout fill writes to device memory, on the graph's device:
+    (store_at int32[n], the scratch row each row is written to or -1;
+    srow int32[n, Pm], the scratch row of each slot's predecessor that a
+    row reads from the scratch, or -1; S, the scratch rows a read, at
+    least 1).
 
     The register form keeps row i-1 in registers, so a row is stored iff
-    some start row lists it as a predecessor other than its row i-1; the
-    full form stores every row (store_at[i] = i, srow = the slots'
-    predecessors).  Cached on the graph.
+    a row that reads its predecessors (a start row of K2 and K5; with
+    ``every_row``, any row: K4) lists it as a predecessor other than its
+    row i-1; the full form stores every row (store_at[i] = i, srow = the
+    slots' predecessors).  Cached on the graph.
     """
     def build():
         pidx = _kernels.graph_args(dg)[0]
@@ -81,7 +83,9 @@ def stored_rows(dg, full: bool = False):
         rows = torch.arange(n, dtype=torch.int32, device=pidx.device)
         if full:
             return rows, pidx, n
-        need = dg.node_start.to(pidx.device)[:, None] & (pidx >= 0) & (pidx != rows[:, None] - 1)
+        reads = (torch.ones(n, dtype=torch.bool, device=pidx.device) if every_row
+                 else dg.node_start.to(pidx.device))
+        need = reads[:, None] & (pidx >= 0) & (pidx != rows[:, None] - 1)
         flag = torch.zeros(n, dtype=torch.bool, device=pidx.device)
         flag[pidx[need].long()] = True
         store_at = torch.where(flag, torch.cumsum(flag, 0, dtype=torch.int32) - 1, -1)
@@ -89,16 +93,20 @@ def stored_rows(dg, full: bool = False):
         return (store_at.to(torch.int32).contiguous(), srow.to(torch.int32).contiguous(),
                 max(1, int(flag.sum())))
 
-    return dg.cached(f"_gap_local_rows_{int(bool(full))}", build)
+    return dg.cached(f"_warp_fill_rows_{int(bool(full))}_{int(bool(every_row))}", build)
 
 
-def check_chain_range(o: int, e: int, Lp: int) -> None:
-    """Raise ValueError where K5's prefix-max chain could leave the
-    reference's: past (|o| + |e|) x Lp = 2^27 the reference's 2x2 map scan
-    may clamp to NEG and the chain's (j + 1) g terms near int32's range."""
-    if (abs(int(o)) + abs(int(e))) * int(Lp) >= CHAIN_RANGE:
-        raise ValueError(f"{KERNEL}: (|o| + |e|) x Lp = (|{o}| + |{e}|) x {Lp} "
-                         f"is at least 2^27")
+def check_chain_range(o: int, e: int, Lp: int) -> bool:
+    """Whether K5's prefix-max chain is exact: True while
+    (|o| + |e|) x Lp < 2^27, else the wrapper takes the clamped chain.
+
+    In mode 3, c >= 0, so x >= j g >= -(|o| + |e|) Lp and the composed
+    maps' sums stay above that too: below 2^27 the reference's 2x2 map
+    scan never clamps (its NEG entries stay below every real value) and
+    the chain's (j + 1) g terms stay in int32.  Past it the clamped chain
+    composes the maps x -> max(x + g, b) clamped to NEG, as the reference
+    does."""
+    return (abs(int(o)) + abs(int(e))) * int(Lp) < CHAIN_RANGE
 
 
 def fill_gap_local_cuda(dg, table, seq, L, o, e, layout: Plan | None = None):
@@ -106,7 +114,6 @@ def fill_gap_local_cuda(dg, table, seq, L, o, e, layout: Plan | None = None):
     (``layout``: a :class:`Plan` to force, else :func:`plan`'s)."""
     dev = seq.device
     B, Lp = seq.shape
-    check_chain_range(o, e, Lp)
     n = dg.n
     pidx, _, node_start = _kernels.check_inputs(KERNEL, dg, table, seq, L)
     if dg.max_preds > MAX_SLOTS:
@@ -121,7 +128,8 @@ def fill_gap_local_cuda(dg, table, seq, L, o, e, layout: Plan | None = None):
     _kernels.launch(
         KERNEL, (B, n, Lp, Lp), dev,
         seq, L, table, dg.codes, node_start, pidx, srow, store_at, B, n, dg.max_preds, Lp,
-        int(o), int(e), pl.cw, pl.warps, int(pl.full), S, ms, ys,
+        int(o), int(e), pl.cw, pl.warps, int(pl.full), int(not check_chain_range(o, e, Lp)),
+        S, ms, ys,
         best_val, best_i, best_j, packed, packed_x, packed_y,
     )
     return best_val, best_i, best_j, packed, packed_x, packed_y

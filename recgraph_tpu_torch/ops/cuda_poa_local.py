@@ -5,6 +5,11 @@ plain version is ``poa_engine.fill_local_plain``; both return
 (best_val, best_i, best_j, packed int32[B, n, Lp]) and agree bit for
 bit, at any read length.  ``metrics.LAUNCHES["poa_local"]`` counts the
 launches.
+
+The launch layout and the rows kept in the device scratch are K5's
+(``cuda_poa_gap_local.plan`` and ``stored_rows``): warps a read, columns
+a lane, register or full form, one read a block; the far predecessors
+of start rows.
 """
 
 from __future__ import annotations
@@ -12,25 +17,34 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
+from .cuda_poa_gap_local import MAX_SLOTS, Plan, plan, stored_rows
 
 KERNEL = "poa_local"
 SOURCE = "recgraph_tpu_torch/csrc/poa_local.cu"
 REPLACES = "recgraph_tpu/ops/pallas_poa_v5.py:251"
 
 
-def fill_local_cuda(dg, table, seq, L):
-    """Launch the mode-1 fill for a read batch on the tensors' GPU."""
+def fill_local_cuda(dg, table, seq, L, layout: Plan | None = None):
+    """Launch the mode-1 fill for a read batch on the tensors' GPU
+    (``layout``: a :class:`~cuda_poa_gap_local.Plan` to force, else
+    ``plan``'s)."""
     dev = seq.device
     B, Lp = seq.shape
     n = dg.n
     pidx, _, node_start = _kernels.check_inputs(KERNEL, dg, table, seq, L)
+    if dg.max_preds > MAX_SLOTS:
+        raise ValueError(f"{KERNEL}: {dg.max_preds} predecessor slots, at most {MAX_SLOTS}")
+    pl = layout or plan(B, Lp, torch.cuda.get_device_properties(dev).multi_processor_count)
+    store_at, srow, S = stored_rows(dg, pl.full)
+    _kernels.check_tensors(KERNEL, dev, store_at=store_at, srow=srow)
+    S += int(pl.full)   # the full form keeps G, the read's gap sums, in one more row
     i32 = dict(dtype=torch.int32, device=dev)
-    m = torch.empty((B, n, Lp), **i32)       # score scratch
+    ms = torch.empty((B, S, Lp), **i32)   # the stored rows' m
     best_val, best_i, best_j = (torch.empty(B, **i32) for _ in range(3))
     packed = torch.empty((B, n, Lp), **i32)
     _kernels.launch(
         KERNEL, (B, n, Lp, Lp), dev,
-        seq, L, table, dg.codes, node_start, pidx, B, n, dg.max_preds,
-        Lp, m, best_val, best_i, best_j, packed,
+        seq, L, table, dg.codes, node_start, pidx, srow, store_at, B, n, dg.max_preds, Lp,
+        pl.cw, pl.warps, int(pl.full), S, ms, best_val, best_i, best_j, packed,
     )
     return best_val, best_i, best_j, packed

@@ -7,7 +7,7 @@ JAX engine's host-driven rounds of it (``:597 _run_split_guided``).
 
 - :func:`col_summary_cuda`, the per-pair entry: one (read, column) pair
   per entry of ``bidx``/``cols``; returns (col_max f32[K], edge_any
-  bool[K], flat_edge int32[K], flat_plain int32[K]), bit for bit those of
+  bool[K], flat_edge int64[K], flat_plain int64[K]), bit for bit those of
   its plain version ``recombination_engine.col_summary_plain``.
   ``metrics.LAUNCHES["split_summary"]`` counts its launches and
   ``metrics.SHAPES`` records (reads, rows, Lp, pairs, the graph's paths).
@@ -46,7 +46,6 @@ REPLACES = "recgraph_tpu/ops/recombination_engine.py:478 (XLA, no TPU kernel)"
 REPLACES_GUIDED = ("recgraph_tpu/ops/recombination_engine.py:597 (host rounds of XLA, "
                    "no TPU kernel)")
 REPLACES_BOUND = "recgraph_tpu/ops/recombination_engine.py:356 (XLA, no TPU kernel)"
-MAX_ROWS = 46340            # flat indices i * I + k stay in int32
 WINDOW = 512                # rows a block stages at once (S1_WINDOW)
 ROW_BYTES = 24              # one compacted row in shared memory
 SMEM_MAX = 226 * 1024       # dynamic shared memory a block may take
@@ -65,6 +64,13 @@ def f32_key(x: torch.Tensor) -> torch.Tensor:
 
 
 KEY_NEG_INF = int(f32_key(torch.tensor([-math.inf]))[0])   # M_b before any column
+
+
+def edge_key(edge0: int, I: int) -> int:
+    """The kernel's pair key (i << 32) | k of the flat index
+    ``edge0`` = i * I + k (-1 stays -1): pairs compare in 64 bits, so
+    any number of interior rows works."""
+    return -1 if edge0 < 0 else (edge0 // I) << 32 | (edge0 % I)
 
 
 def tiles(I: int, rtile: int | None = None) -> tuple[int, int]:
@@ -129,8 +135,8 @@ def _check(fmax, farg, vf, rmax, rarg, vr, geom, **more):
     if dev.type != "cuda":
         raise ValueError(f"{KERNEL}: needs CUDA tensors, got {dev}")
     B, I, Lp = fmax.shape
-    if not 1 <= I <= MAX_ROWS:
-        raise ValueError(f"{KERNEL}: {I} interior rows (flat indices need I <= {MAX_ROWS})")
+    if not 1 <= I < 1 << 31:
+        raise ValueError(f"{KERNEL}: {I} interior rows")
     want = dict(fmax=(fmax, torch.int32), farg=(farg, torch.int32), vf=(vf, torch.bool),
                 rmax=(rmax, torch.int32), rarg=(rarg, torch.int32), vr=(vr, torch.bool),
                 dfs=(geom["dfs"], torch.float32), dfe=(geom["dfe"], torch.float32),
@@ -181,13 +187,13 @@ def col_summary_cuda(fmax, farg, vf, rmax, rarg, vr, geom, R, r, bidx, cols):
         raise ValueError(f"{KERNEL}: bad pair shapes {tuple(bidx.shape)}, {tuple(cols.shape)}")
     capf, capr = tiles(I)
     col_max = torch.empty(K, dtype=torch.float32, device=dev)
-    edge_any, flat_edge, flat_plain = (torch.empty(K, dtype=torch.int32, device=dev)
-                                       for _ in range(3))
+    edge_any = torch.empty(K, dtype=torch.int32, device=dev)
+    flat_edge, flat_plain = (torch.empty(K, dtype=torch.int64, device=dev) for _ in range(2))
     _kernels.launch(
         KERNEL, (B, I + 2, Lp, K, geom["paths"]), dev,
         fmax, farg, vf, rmax, rarg, vr, geom["dfs"], geom["dfe"], geom["ids"], geom["fwe"],
-        geom["rve"], float(R), float(r), bidx, cols, K, I, Lp, geom["edge0"], capf, capr,
-        col_max, edge_any, flat_edge, flat_plain,
+        geom["rve"], float(R), float(r), bidx, cols, K, I, Lp, edge_key(geom["edge0"], I),
+        capf, capr, col_max, edge_any, flat_edge, flat_plain,
     )
     return col_max, edge_any.bool(), flat_edge, flat_plain
 
@@ -217,18 +223,19 @@ def split_guided_cuda(inputs, geom, ub, active, init_best, R, r, blocks=None, rt
     capf, capr = tiles(I, rtile)
     if blocks is None:
         blocks = launch_blocks(dev, B, I, rtile)
-    work = torch.zeros(3 * B + 5 * B * Lp, dtype=torch.int32, device=dev)
+    work = torch.zeros(3 * B + 3 * B * Lp, dtype=torch.int32, device=dev)
     work[2 * B : 3 * B] = KEY_NEG_INF
     state, cols = work[: 3 * B], work[3 * B :]
+    flats = torch.zeros(2 * B * Lp, dtype=torch.int64, device=dev)   # pair keys fe, fp
     out = torch.empty((7, B), dtype=torch.int32, device=fmax.device)
     _kernels.launch(
         GUIDED, (B, I + 2, Lp, blocks, geom["paths"]), dev,
         *inputs, geom["dfs"], geom["dfe"], geom["ids"], geom["fwe"], geom["rve"], float(R),
-        float(r), ubs, order, ncand, init_best, B, I, Lp, geom["edge0"], blocks, capf, capr,
-        state, cols, out, metrics.device_counter("split_pairs", dev),
+        float(r), ubs, order, ncand, init_best, B, I, Lp, edge_key(geom["edge0"], I), blocks,
+        capf, capr, state, cols, flats, out, metrics.device_counter("split_pairs", dev),
     )
     if not with_state:
         return out
-    per_col = cols.view(5, B, Lp)
-    return out, dict(ub=u, done=per_col[4] != 0,
+    per_col = cols.view(3, B, Lp)
+    return out, dict(ub=u, done=per_col[2] != 0,
                      col_max=per_col[0].contiguous().view(torch.float32))

@@ -78,13 +78,17 @@ def _affine_row_scan(c, v_left, is_left, in_band, o, e):
 # ---------------------------------------------------------------------------
 
 
-def fill_gap_global_plain(dg, table, seq, L, bta, o, e):
+def fill_gap_global_plain(dg, table, seq, L, bta, o, e, chain=False):
     """Mode-2 fill for a read batch, as a torch row loop.
 
     Returns (score[B], last_row[B], last_col_abs[B], packed, packed_x,
     packed_y int32[B, n, Lp], lefts int32[B, n], rights int32[B, n]).
+    ``chain`` solves each row's (M, X) recurrence as K4 does
+    (:func:`x_chain_band_plain`: True, the prefix-max chain; "clamped",
+    the clamped chain) instead of the reference's 2x2 map scan.
     """
-    return _fill_gap_global_rows(dg, table, seq, L, bta, o, e, seq.shape[1], False)[:8]
+    return _fill_gap_global_rows(dg, table, seq, L, bta, o, e, seq.shape[1], False,
+                                 chain)[:8]
 
 
 def fill_gap_global_windowed_plain(dg, table, seq, L, bta, o, e, W):
@@ -96,7 +100,7 @@ def fill_gap_global_windowed_plain(dg, table, seq, L, bta, o, e, W):
     return _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, True)
 
 
-def _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, windowed):
+def _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, windowed, chain=False):
     """The mode-2 row loop over W stored columns per row; full width is
     the window [0, Lp) (``windowed=False``: ws_i = 0, W = Lp)."""
     h = dg.host()
@@ -195,7 +199,11 @@ def _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, windowed):
             c_left = c.gather(1, left_rel)[:, 0]
             m_left = torch.where(left == 0, x_left, torch.maximum(c_left, x_left))
             v_left = torch.stack([m_left, x_left], dim=-1)
-            m_row, x_row = _affine_row_scan(c, v_left, is_left, in_band, o, e)
+            if chain:
+                m_row, x_row = x_chain_band_plain(c, x_left, left, right, o, e,
+                                                  clamped=chain == "clamped")
+            else:
+                m_row, x_row = _affine_row_scan(c, v_left, is_left, in_band, o, e)
             m_row = torch.where(in_band, m_row, NEG)
             y_row = torch.where(in_band, y_row, NEG)
 
@@ -250,25 +258,50 @@ def _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, windowed):
 # ---------------------------------------------------------------------------
 
 
-def x_chain_plain(c, o, e):
-    """Mode 3's in-row (M, X) recurrence as K5 solves it: with
-    g = max(o + e, e), x[j] = max(c[j-1] + o + e, x[j-1] + g), so
+def x_chain_band_plain(c, x_left, left, right, o, e, clamped=False):
+    """The in-row (M, X) recurrence of a band [left, right) from its left
+    state, as K4 solves it (K5's is the band [0, Lp) from x = 0; the
+    kernel's c~[0] = 0 there gives the same x[1] = g).
 
-        x[j] = j g + max(0, max_{k < j} w[k]),  w[k] = c~[k] + o + e - (k + 1) g
+    With g = max(o + e, e), x[left] = x_left and, in the band,
+    x[j+1] = max(x[j] + g, c~[j] + o + e), c~[left] = -inf where left = 0
+    (m[0] = x_left there), else c~[j] = c[j]; m[j] = max(c[j], x[j])
+    (m[left] = x_left where left = 0).  The fast form is a prefix maximum,
 
-    (c~[0] = 0: column 0 is the (0, 0) state), a prefix maximum, and
-    m[j] = max(c[j], x[j]).  ``c`` int32[B, W] (column 0 ignored).
-    Returns (m_row, x_row) before the border; equal to
-    :func:`_affine_row_scan`'s on every valid column while the values stay
-    far from NEG."""
+        x[j] = j g + max(x_left - left g, max_{left <= k < j} w[k]),
+        w[k] = c~[k] + o + e - (k + 1) g;
+
+    the clamped form (``clamped``) applies the maps x -> max(x + g, b)
+    one column at a time, every value clamped to NEG as the reference's
+    map scan clamps.  ``c`` int32[B, W]; ``x_left``, ``left``, ``right``
+    int32[B].  Returns (m_row, x_row) int32[B, W], NEG outside the band.
+    """
     B, W = c.shape
     g = max(o + e, e)
-    j = torch.arange(W, dtype=_I32, device=c.device)
-    w = torch.where(j == 0, 0, c) + (o + e) - (j + 1) * g
-    pre = torch.cummax(w, dim=1).values
-    pre = torch.cat([torch.zeros((B, 1), dtype=_I32, device=c.device), pre[:, :-1]], 1)
-    x = j * g + pre.clamp(min=0)
-    return torch.maximum(c, x), x
+    dev = c.device
+    j = torch.arange(W, dtype=torch.int64, device=dev)[None, :]
+    lc, rc = left.long()[:, None], right.long()[:, None]
+    in_band = (j >= lc) & (j < rc)
+    c64, xl = c.long(), x_left.long()[:, None]
+    ct = torch.where((j == lc) & (lc == 0), -(1 << 62), c64)   # c~
+    if clamped:
+        x = torch.full((B, W), NEG, dtype=torch.int64, device=dev)
+        cur = xl.expand(B, 1).clone()
+        for k in range(W):
+            kk = torch.full_like(cur, k)
+            x[:, k : k + 1] = torch.where(kk == lc, xl, cur)
+            nxt = torch.maximum(torch.maximum(x[:, k : k + 1] + g, ct[:, k : k + 1] + o + e),
+                                torch.full_like(cur, NEG))
+            cur = torch.where(kk >= lc, nxt, cur)
+    else:
+        w = torch.where(in_band, ct + (o + e) - (j + 1) * g, -(1 << 62))
+        pre = torch.cummax(w, dim=1).values
+        pre = torch.cat([torch.full((B, 1), -(1 << 62), dtype=torch.int64, device=dev),
+                         pre[:, :-1]], 1)
+        x = j * g + torch.maximum(pre, xl - lc * g)
+    m = torch.where(j == lc, torch.where(lc == 0, xl, torch.maximum(c64, xl)),
+                    torch.maximum(c64, x))
+    return (torch.where(in_band, m, NEG).to(_I32), torch.where(in_band, x, NEG).to(_I32))
 
 
 def fill_gap_local_plain(dg, table, seq, L, o, e, chain=False):
@@ -277,8 +310,10 @@ def fill_gap_local_plain(dg, table, seq, L, o, e, chain=False):
     Scores as (seq[j], lnz[i]), the transposed table of
     gap_local_poa.rs:57,137.  Returns (best_val[B], best_i[B], best_j[B],
     packed, packed_x, packed_y int32[B, n, Lp]).  ``chain`` solves each
-    row's (M, X) recurrence as K5 does (:func:`x_chain_plain`) instead of
-    the reference's 2x2 map scan; the outputs are the same.
+    row's (M, X) recurrence as K5 does (:func:`x_chain_band_plain` on
+    [0, Lp) from x = 0: True, the prefix-max chain; "clamped", the clamped
+    chain) instead of the reference's 2x2 map scan; the outputs are the
+    same.
     """
     h = dg.host()
     n = dg.n
@@ -293,6 +328,8 @@ def fill_gap_local_plain(dg, table, seq, L, o, e, chain=False):
     border0 = (jcol == 0) | ~valid
     neg = torch.full((B, Lp), NEG, dtype=_I32, device=dev)
     zero2 = torch.zeros((B, 2), dtype=_I32, device=dev)
+    zb = torch.zeros(B, dtype=_I32, device=dev)
+    full_lp = torch.full_like(zb, Lp)
 
     m = torch.zeros((B, n, Lp), dtype=_I32, device=dev)
     y = torch.zeros((B, n, Lp), dtype=_I32, device=dev)
@@ -335,7 +372,7 @@ def fill_gap_local_plain(dg, table, seq, L, o, e, chain=False):
 
         c = torch.clamp(torch.maximum(d_val, y_row), min=0)
         if chain:
-            m_row, x_row = x_chain_plain(c, o, e)
+            m_row, x_row = x_chain_band_plain(c, zb, zb, full_lp, o, e, clamped=chain == "clamped")
         else:
             m_row, x_row = _affine_row_scan(c, zero2, is_left, valid, o, e)
         m_row = torch.where(border0, 0, m_row)

@@ -250,8 +250,9 @@ def _column_ub(fmax, vf, rmax, vr, wf, wr):
 def col_summary_plain(fmax, farg, vf, rmax, rarg, vr, geom, R, r, bidx, cols):
     """Per (read, column) pair ``(bidx[p], cols[p])``: the summary of the
     I x I candidate plane that best_alignment's take/tie chain reads,
-    (col_max f32[K], edge_any bool[K], flat_edge int32[K], flat_plain
-    int32[K]), as ``_col_summary_fn`` gives it.
+    (col_max f32[K], edge_any bool[K], flat_edge int64[K], flat_plain
+    int64[K]), as ``_col_summary_fn`` gives it (its flat indices are
+    int32 and wrap past 46,340 interior rows; these do not).
 
     cand[i, k] = (f32(fmax[i]) + f32(rmax[k])) - (R + r (|Δdfs| + |Δdfe|)),
     valid where the node ids differ, both summaries are on their paths
@@ -291,8 +292,8 @@ def col_summary_plain(fmax, farg, vf, rmax, rarg, vr, geom, R, r, bidx, cols):
     cm, ea, fe, fp = zip(*out) if out else ((), (), (), ())
     return (torch.tensor(cm, dtype=torch.float32, device=dev),
             torch.tensor(ea, dtype=torch.bool, device=dev),
-            torch.tensor(fe, dtype=_I32, device=dev),
-            torch.tensor(fp, dtype=_I32, device=dev))
+            torch.tensor(fe, dtype=torch.int64, device=dev),
+            torch.tensor(fp, dtype=torch.int64, device=dev))
 
 
 def col_summary_best(inputs, geom, R, r, bidx, cols):

@@ -6,10 +6,11 @@ checked at the launch shapes of ``chip_smoke.py``'s CLI runs and at the
 edges of each form.  ``cuda_poa_gap_local.stored_rows`` picks the rows
 whose m and y the kernel writes to its device scratch: every predecessor
 of a start row other than its row i-1 (which the register form keeps in
-registers), and no other row.  ``poa_gap_engine.x_chain_plain``, the
-prefix-max form of the in-row (M, X) recurrence that K5 computes, gives
-the JAX engine's fill exactly, for both signs of the penalties; the
-wrapper refuses penalties and widths past the range where that holds.
+registers), and no other row.  ``poa_gap_engine.x_chain_band_plain`` on
+[0, Lp) from x = 0, the prefix-max form of the in-row (M, X) recurrence
+that K5 computes, gives
+the JAX engine's fill exactly, for both signs of the penalties; past the
+range where that holds the wrapper takes the kernel's clamped chain.
 """
 
 import os
@@ -123,29 +124,31 @@ def test_x_chain_matches_affine_scan():
         valid = jcol < L[:, None]
         ref = poa_gap_engine._affine_row_scan(c, torch.zeros((B, 2), dtype=torch.int32),
                                               jcol == 0, valid, o, e)
-        got = poa_gap_engine.x_chain_plain(c, o, e)
+        zb = torch.zeros(B, dtype=torch.int32)
+        got = poa_gap_engine.x_chain_band_plain(c, zb, zb, torch.full_like(zb, W), o, e)
         for a, b in zip(got, ref):
             keep = valid & (jcol > 0)
             assert torch.equal(torch.where(keep, a, 0), torch.where(keep, b, 0)), (o, e)
 
 
 def test_chain_range_guard():
-    """K5's wrapper refuses (|o| + |e|) x Lp of 2^27 or more, where the
-    reference's scan may clamp to NEG, before it touches the card; below
-    that it lets the fill through."""
-    k5.check_chain_range(-4, -2, 152)
-    k5.check_chain_range(-(1 << 20), 0, (1 << 7) - 1)       # one below the limit
-    k5.check_chain_range(3, -5, (1 << 24) - 1)
+    """K5's wrapper selects its chain: the prefix-max chain while
+    (|o| + |e|) x Lp < 2^27, the clamped chain from 2^27 on, where the
+    reference's scan may clamp to NEG (the CLI's -O 100000 -E 1 from
+    1,343 columns on: reads of 1,342 bp and their leading '$'); it no longer refuses a fill there."""
+    assert k5.check_chain_range(-4, -2, 152)
+    assert k5.check_chain_range(-(1 << 20), 0, (1 << 7) - 1)       # one below the limit
+    assert k5.check_chain_range(3, -5, (1 << 24) - 1)
+    assert k5.check_chain_range(-100000, -1, 1342)
     for o, e, Lp in ((-(1 << 20), 0, 1 << 7), (3, -5, 1 << 24), (1 << 26, 1 << 26, 1),
-                     (-4, -2, 22369622)):
-        with pytest.raises(ValueError, match="2\\^27"):
-            k5.check_chain_range(o, e, Lp)
+                     (-4, -2, 22369622), (-100000, -1, 1343)):
+        assert not k5.check_chain_range(o, e, Lp)
     g = PoaGraph.from_gfa(gfa.parse_gfa(os.path.join(ROOT, "example", "graph.gfa")))
     dg = poa_device_graph(g, "cpu")
     seq = torch.zeros((1, 8), dtype=torch.int32)
     L = torch.full((1,), 8, dtype=torch.int32)
     table = torch.zeros((7, 7), dtype=torch.int32)
-    with pytest.raises(ValueError, match="2\\^27"):    # raised before any device call
+    with pytest.raises(ValueError, match="needs CUDA"):   # past the range it goes to the card
         k5.fill_gap_local_cuda(dg, table, seq, L, -(1 << 24), -(1 << 24))
 
 

@@ -322,18 +322,20 @@ def test_pathwise_win_kernel_matches_plain(cuda, tmp_path):
 
 
 def _gap_local_edge(name, tmp_path):
-    """(PoaGraph, reads, read width to pad to, forced layouts) of a K5 case
-    at the edges of its launch layout (``cuda_poa_gap_local.plan``); None
-    in the layouts is the wrapper's own choice."""
+    """(PoaGraph, reads, read width to pad to, forced layouts) of a case at
+    the edges of the warp layout of K2, K4 and K5
+    (``cuda_poa_gap_local.plan``); None in the layouts is the wrapper's own
+    choice."""
     Plan = cuda_poa_gap_local.Plan
     seqs = fasta.get_sequences(EXAMPLE[0])[0]
     example = PoaGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
     if name == "bp1":   # 1-bp reads: one column a lane
         return example, ["$A", "$C", "$G", "$T", "$N"], None, (None,)
-    if name in ("lp151", "lp161", "lp225", "lp321"):
+    if name.startswith("lp"):
         # a width of 151 (not a multiple of 4: no 16-byte stores); past a
-        # warp of 5 columns a lane; just past one warp a read (2 warps);
-        # past two warp segments (3 warps; reads are padded to 8 columns)
+        # warp of 5 columns a lane; one warp of 7 columns a lane; just past
+        # one warp a read (2 warps); past two warp segments (3 warps; reads
+        # are padded to 8 columns); the full form in one window
         return example, seqs[:6], int(name[2:]), (None,)
     if name == "forced":   # several warps a read, the full form in one window
         return example, seqs[:6], None, (None, Plan(2, 5, False), Plan(3, 3, False),
@@ -379,6 +381,101 @@ def test_gap_local_kernel_at_layout_edges(cuda, tmp_path, name):
         for layout in layouts:
             _assert_equal(cuda_poa_gap_local.fill_gap_local_cuda(dg, table, seq, L, o, e, layout),
                           ref, ("K5", name, matrix, o, e, layout))
+
+
+WARP_EDGES = ["bp1", "lp151", "lp224", "lp225", "lp321", "lp3585", "forced", "fan40", "long5k"]
+
+
+def _edge_inputs(name, tmp_path, device):
+    g, reads, pad_to, layouts = _gap_local_edge(name, tmp_path)
+    dg = poa_device_graph(g, device)
+    seq, L = encode_reads(reads, pad_to=pad_to, device=device)
+    if name == "lp151":
+        seq = seq[:, :151].contiguous()
+    bta = encode_read_aux([k % 3 if k % 2 else int(1 + 0.01 * len(s))
+                           for k, s in enumerate(reads)], device)
+    return dg, seq, L, bta, layouts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WARP_EDGES)
+def test_gap_global_kernel_at_layout_edges(cuda, tmp_path, name):
+    """K4 at the edges of its layout (K5's cases; widths of 224, one warp
+    of 7 columns a lane, and 3,585, the full form in one window), every
+    output equal to the plain fill: both signs of the gap open, both
+    tables, bands from column 0 (band slack 0-2 beside the CLI's), and a
+    gap open just past the prefix-max chain's range (the clamped chain)."""
+    dg, seq, L, bta, layouts = _edge_inputs(name, tmp_path, cuda)
+    n, Lp = dg.n, seq.shape[1]
+    oc = -((1 << 26) // (2 * n + 2 * Lp + 2)) - 1
+    assert not cuda_poa_gap_global.check_chain_range(oc, -1, n, Lp)
+    assert cuda_poa_gap_global.check_chain_range(oc + 3, -1, n, Lp)
+    for matrix, (o, e) in (("none", (-4, -2)), ("none", (1, -2)), ("HOXD70", (-4, -2)),
+                           ("none", (oc, -1))):
+        if name == "long5k" and matrix == "HOXD70":
+            continue
+        table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table,
+                                dtype=torch.int32).to(cuda)
+        ref = poa_gap_engine.fill_gap_global_plain(dg, table, seq, L, bta, o, e)
+        for layout in layouts:
+            _assert_equal(cuda_poa_gap_global.fill_gap_global_cuda(dg, table, seq, L, bta, o, e,
+                                                                   layout),
+                          ref, ("K4", name, matrix, o, e, layout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WARP_EDGES)
+def test_local_kernel_at_layout_edges(cuda, tmp_path, name):
+    """K2 at the edges of its layout (K5's and K4's cases), all four
+    outputs equal to the plain fill, with both tables."""
+    dg, seq, L, _, layouts = _edge_inputs(name, tmp_path, cuda)
+    for matrix in ("none", "HOXD70"):
+        table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table,
+                                dtype=torch.int32).to(cuda)
+        ref = poa_engine.fill_local_plain(dg, table, seq, L)
+        for layout in layouts:
+            _assert_equal(cuda_poa_local.fill_local_cuda(dg, table, seq, L, layout), ref,
+                          ("K2", name, matrix, layout))
+
+
+@pytest.mark.cuda
+def test_gap_local_clamped_chain_past_range(cuda, tmp_path):
+    """K5 past the prefix-max chain's range, (|o| + |e|) x Lp >= 2^27: the
+    wrapper takes the clamped chain, bit for bit the plain fill (the
+    reference's map scan), at the CLI's -O 100000 -E 1 on reads past
+    1,342 bp (several warps a read, and the full form), at
+    (o, e) = (-2^20, 0) on the example reads (one warp a read), and at
+    e = -2^22, where the reference's scan clamps; the dispatcher takes
+    it too.  Then the CLI's -m 3 -O 100000 -E 1 on such reads on the card
+    equals the CPU run."""
+    Plan = cuda_poa_gap_local.Plan
+    rng = random.Random(1342)
+    longs = ["$" + "".join(rng.choice("ACGT") for _ in range(k)) for k in (1400, 1350)]
+    g = PoaGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+    dg = poa_device_graph(g, cuda)
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table, dtype=torch.int32).to(cuda)
+    short = fasta.get_sequences(EXAMPLE[0])[0][:6]
+    for reads, (o, e), layouts in ((longs, (-100000, -1), (None, Plan(16, 9, True))),
+                                   (short, (-(1 << 20), 0), (None, Plan(2, 5, False))),
+                                   (short, (-5, -(1 << 22)), (None,))):
+        seq, L = encode_reads(reads, device=cuda)
+        assert not cuda_poa_gap_local.check_chain_range(o, e, seq.shape[1])
+        ref = poa_gap_engine.fill_gap_local_plain(dg, table, seq, L, o, e)
+        _assert_equal(poa_gap_engine.fill_gap_local_best(dg, table, seq, L, o, e), ref,
+                      ("K5 dispatch", o, e))
+        for layout in layouts:
+            _assert_equal(cuda_poa_gap_local.fill_gap_local_cuda(dg, table, seq, L, o, e, layout),
+                          ref, ("K5 clamped", o, e, layout))
+    fa = tmp_path / "long.fa"
+    fa.write_text("".join(f">r{k}\n{s[1:]}\n" for k, s in enumerate(longs)))
+    out = {}
+    for device in ("cpu", "cuda"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            run(Options(str(fa), EXAMPLE[1], alignment_mode=3, gap_open=100000,
+                        gap_extension=1, device=device))
+        out[device] = buf.getvalue()
+    assert out["cuda"] == out["cpu"] and len(out["cpu"].splitlines()) == 2
 
 
 @pytest.mark.cuda
@@ -657,6 +754,64 @@ def test_split_guided_long_read(cuda, tmp_path):
     for mode in (8, 9):
         _guided_vs_plain(g, g.reverse(), reads, mode, cuda, SPLIT_COSTS["default"],
                          runs=((1, None), (None, None), (None, 512)))
+
+
+@pytest.mark.cuda
+def test_split_search_past_46340_rows(cuda):
+    """S1 on 46,400 interior rows, where the flat index i x I + k passes
+    int32: the guided entry (1 and 4 blocks a read, the wrapper's count)
+    and the bound entry against the plain search (``_run_split_guided``
+    on the CPU, int64 flat indices) bit for bit, and the per-pair entry
+    against ``col_summary_plain`` on every column.  Three reads of 24
+    columns; each column's valid rows are a few dozen, the best ones
+    past row 46,340."""
+    from types import SimpleNamespace
+
+    I, B, Lp = 46_400, 3, 24
+    rng = np.random.default_rng(46341)
+    geom = SimpleNamespace(dfs_i=np.sort(rng.integers(0, 5000, I)).astype(np.int64),
+                           dfe_i=np.sort(rng.integers(0, 5000, I))[::-1].astype(np.int64),
+                           ids_i=np.arange(I, dtype=np.int32), fw_edge=rng.random(I) < 0.3,
+                           rv_edge=rng.random(I) < 0.3, paths=4)
+
+    def side():
+        mx = rng.integers(0, 200, (B, I, Lp)).astype(np.int32)
+        mx[:, 46_341:] += 400   # the best candidates lie past row 46,340
+        arg = rng.integers(0, 4, (B, I, Lp)).astype(np.int32)
+        valid = np.zeros((B, I, Lp), bool)
+        for b in range(B):
+            for j in range(Lp):
+                valid[b, rng.integers(0, I, 20), j] = True
+                valid[b, rng.integers(46_341, I, 12), j] = True
+        return mx, arg, valid
+
+    host = tuple(torch.from_numpy(a) for a in (*side(), *side()))
+    dev = tuple(t.to(cuda) for t in host)
+    geom_h = recombination_engine._SplitGeometry.tensors(geom, "cpu")
+    geom_d = recombination_engine._SplitGeometry.tensors(geom, cuda)
+    active = np.ones((B, Lp), bool)
+    init_best = np.full(B, -1e9, np.float32)
+    ref = recombination_engine._run_split_guided(host, geom, geom_h, active, init_best, 4, 0.1)
+    assert ref[1].all() and (ref[2].astype(np.int64) > 46_341).all()
+    ub = recombination_engine._split_ub(dev, geom, 0.1)
+    assert ub.cpu().numpy().tobytes() == recombination_engine._split_ub(
+        host, geom, 0.1).numpy().tobytes()
+    for blocks in (1, 4, None):
+        out, st = cuda_split_summary.split_guided_cuda(
+            dev, geom_d, ub, torch.from_numpy(active).to(cuda),
+            torch.from_numpy(init_best).to(cuda), 4, 0.1, blocks=blocks, with_state=True)
+        got = recombination_engine.unpack_split(out.cpu().numpy())
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (blocks, k)
+    bidx = torch.arange(B, dtype=torch.int32).repeat_interleave(Lp - 2)
+    cols = torch.arange(1, Lp - 1, dtype=torch.int32).repeat(B)
+    want = recombination_engine.col_summary_plain(*host, geom_h, 4, 0.1, bidx, cols)
+    assert int(want[3].max()) >= 1 << 31   # past int32
+    got = cuda_split_summary.col_summary_cuda(*dev, geom_d, 4, 0.1, bidx.to(cuda),
+                                              cols.to(cuda))
+    for k, (a, b) in enumerate(zip(got, want)):
+        a = a.cpu()
+        assert a.dtype == b.dtype and torch.equal(a, b), k
 
 
 @pytest.mark.cuda
