@@ -53,7 +53,12 @@ Phases, in order; any failure raises and the script exits nonzero:
             e = -2^22 on the example reads), K2 and K4 at the edges of
             the same layout (widths of 224 and 225 besides K5's) and K4
             with its clamped chain (o = -30000 on the example graph: one
-            warp, two, the full form), K10 on a read
+            warp, two, the full form), K1 at K2's edges and with the
+            several-warp and full forms forced beside HOXD70, K6 at W =
+            8, at W = 256 and 512 on a two-arm bubble of 600-bp arms (its
+            window jumps back by more than W), with forced layouts, with
+            (o, e) = (+1, -2) and past its prefix-max chain's range
+            (o = -30000, the clamped chain; also the full form), K10 on a read
             shorter than W, at W = 34 and with its scratch in device
             memory, K1 on 64 long reads at
             full width, K3/K6/K10 at W = 32, where reads overflow, K7 in
@@ -325,6 +330,10 @@ def kernel_cases(example, long, workdir):
     cases[("poa", "fan40")] = (PoaGraph.from_gfa(fan), cases[("path", "fan40")][1])
     cases[("poa", "long5k")] = (cases[("poa", "long64")][0], [l2[0] + l2[1][1:], l2[1]])
     cases[("poa", "long2")] = (cases[("poa", "long64")][0], l2)   # K5's clamped chain
+    # K6: a two-arm bubble of 600-bp arms, whose window jumps back by more than W
+    bubble, bub_rng = fuzz.bubble_gfa(600, 40, seed=3), random.Random(5)
+    cases[("poa", "bubble")] = (PoaGraph.from_gfa(bubble),
+                                [fuzz.random_read(bub_rng, bubble) for _ in range(3)])
     # K10: a read shorter than the window beside the long reads
     cases[("path", "long8s")] = (cases[("path", "long8")][0],
                                  cases[("path", "long8")][1] + ["$" + "ACGT" * 5])
@@ -554,6 +563,17 @@ def kernel_specs():
                            case("example", oe=(-30000, -1)),
                            case("example", pad_to=225, oe=(-30000, -1)),
                            case("example", oe=(-30000, -1), layout=GP(16, 9, True))]
+    # K1 at the same edges, and HOXD70 on several warps and the full form
+    gc_edges = wl_edges + [case("example", "HOXD70", layout=GP(3, 3, False)),
+                           case("fan40", "HOXD70", layout=GP(16, 9, True))]
+    # K6 at the smallest window; at W 256 and 512 on the bubble (the window
+    # jumps back by W or more), with forced layouts, (o, e) = (+1, -2) and
+    # past the prefix-max chain's range (the clamped chain)
+    gw_edges = [case("example", W=8), case("bubble", W=256), case("bubble", W=512),
+                case("bubble", W=256, layout=GP(3, 3, False)),
+                case("bubble", W=256, oe=(1, -2)),
+                case("bubble", W=512, oe=(-30000, -1), layout=GP(16, 9, True)),
+                case("example", W=32, oe=(-30000, -1))]
     gap = [case("tile")] + [case(c, matrix=m, oe=oe, semi=semi) for semi in (False, True)
                             for c, m, oe in (
         ("example", "none", (O, E)), ("p130", "none", (O, E)), ("p33", "none", (O, E)),
@@ -563,7 +583,7 @@ def kernel_specs():
     return [
         dict(id="K1", mod=cuda_poa_global, kern=cuda_poa_global.fill_global_cuda,
              plain=glob(lambda out: out), shared=True, graph="poa", ops=(24, 4),
-             args=glob_args, cases=poa + [case("long64")]),
+             args=glob_args, cases=poa + [case("long64"), *gc_edges]),
         dict(id="K2", mod=cuda_poa_local, kern=cuda_poa_local.fill_local_cuda,
              plain=loc(lambda out: out[:4]), shared=True, graph="poa", ops=(20, 4),
              args=loc_args, cases=local + wl_edges + [case("fan40", "HOXD70")]),
@@ -602,7 +622,7 @@ def kernel_specs():
              kern=cuda_poa_gap_global_win.fill_gap_global_win_cuda,
              plain=poa_gap_engine.fill_gap_global_windowed_plain, graph="poa", ops=(62, 10),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.o, x.e, x.W), note=over,
-             cases=win + [case("example", W=32, oe=(1, -2))]),
+             cases=win + [case("example", W=32, oe=(1, -2)), *gw_edges]),
         dict(id="K7", mod=cuda_pathwise, kern=cuda_pathwise.fill_pathwise_cuda,
              plain=pathwise_engine.fill_pathwise_plain, graph="path", ops=(16, 0),
              args=lambda x: (x.dg, x.table, x.seq, x.semi), main_also=dict(semi=True),

@@ -10,16 +10,18 @@ its kernels) and times with CUDA events, one warm-up first:
 - K1 (``poa_engine.fill_global_best``) and K2 (``fill_local_best``) on
   the first 3,047 reads of the stretch corpus (``tools/make_synthetic.
   make(d, 700, 10000, 42)``, n = 2,249, Lp = 152): the mean of 3
-  launches, repeated 5 times, with a checksum of the outputs; K2 also
-  on the first 859 stretch reads and on the first 64 long reads at full
-  width, and K4 (``cuda_poa_gap_global.fill_gap_global_cuda``, mode 2
-  with the CLI's o = -4, e = -2 and band slack) on the first 1,241 and
+  launches, repeated 5 times, with a checksum of the outputs; K1 and K2
+  also on the first 859 stretch reads, K2 on the first 64 long reads at
+  full width, and K4 (``cuda_poa_gap_global.fill_gap_global_cuda``, mode
+  2 with the CLI's o = -4, e = -2 and band slack) on the first 1,241 and
   72 stretch reads: the mean of 3 launches, repeated 3 times, and a
   checksum;
 - K5's clamped chain on the first 46 long reads at the CLI's
   -O 100000 -E 1 (a checkout whose wrapper refuses these penalties
-  records the refusal), and K6 (``cuda_poa_gap_global_win.
-  fill_gap_global_win_cuda``, W = 256) on the first 437 long reads: the
+  records the refusal), K6 (``cuda_poa_gap_global_win.
+  fill_gap_global_win_cuda``) on the first 437 long reads at W = 256 and
+  on the first 219 and 75 at W = 512, and K3 (``cuda_poa_global_win.
+  fill_global_win_cuda``) on the 512 long reads at W = 256 and 512: the
   mean of 3 launches, repeated 3 times, and a checksum;
 - K5 (``cuda_poa_gap_local.fill_gap_local_cuda``, mode 3 with the CLI's
   o = -4, e = -2) on the first 1,241 stretch reads and on the first 46
@@ -58,8 +60,8 @@ its kernels) and times with CUDA events, one warm-up first:
   mean of 3 launches, repeated 5 times.
 
 Prints one JSON line per ROOT (with the ptxas registers and spill
-stores of the K2, K4 and K5 kernels that checkout built) and the card's
-``nvidia-smi`` name and power limit.  Compare two checkouts only within
+stores of the K1, K2, K4 (and K6) and K5 kernels that checkout built)
+and the card's ``nvidia-smi`` name and power limit.  Compare two checkouts only within
 one run.  Needs CUDA.
 """
 
@@ -150,10 +152,14 @@ for B in (1241, 72):   # K4 at the stretch chunk shapes of mode 2
     del sB, LB, bB
     torch.cuda.empty_cache()
 sB, LB = seq[:859].contiguous(), L[:859].contiguous()   # K2 at the last stretch chunk's shape
+bB = bta[:859].contiguous()
 k2 = lambda: cuda_poa_local.fill_local_cuda(dg, table, sB, LB)
 out["K2 stretch 859"] = timed(k2, 3, 3)
 out["K2 stretch 859 checksum"] = checksum(k2())
-del dg, seq, L, bta, fills, sB, LB
+k1 = lambda: poa_engine.fill_global_best(dg, table, sB, LB, bB)   # K1 at the same shape
+out["K1 stretch 859"] = timed(k1, 3, 3)
+out["K1 stretch 859 checksum"] = checksum(k1())
+del dg, seq, L, bta, fills, sB, LB, bB
 torch.cuda.empty_cache()
 
 from recgraph_tpu_torch.ops import _kernels
@@ -162,8 +168,9 @@ with open(_kernels.library_path()[:-3] + ".log") as fh:   # -Xptxas -v of this c
     for ln in fh:
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-            entry = entry if any(k in entry for k in ("poa_gap_global_kernel", "poa_local_kernel",
-                                                     "poa_gap_local_kernel")) else None
+            entry = entry if any(k in entry for k in (
+                "poa_gap_global_kernel", "poa_local_kernel", "poa_gap_local_kernel",
+                "poa_global_warp_kernel")) else None
         elif entry and "spill stores" in ln:
             spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
         elif entry and "Used" in ln and "registers" in ln:
@@ -208,6 +215,25 @@ k6 = lambda: cuda_poa_gap_global_win.fill_gap_global_win_cuda(dg, table, seq_w, 
                                                               -4, -2, 256)
 out["K6 long 437 W256"] = timed(k6, 3, 3)
 out["K6 long 437 W256 checksum"] = checksum(k6())
+del seq_w, L_w, bta_w
+for B in (219, 75):   # K6 at the W 512 rung's chunk shapes
+    seq_w, L_w = encode_reads(long_reads[:B], pad_to=2440, device="cuda")
+    bta_w = encode_read_aux([int(1 + 0.01 * len(s)) for s in long_reads[:B]], "cuda")
+    k6 = lambda: cuda_poa_gap_global_win.fill_gap_global_win_cuda(dg, table, seq_w, L_w, bta_w,
+                                                                  -4, -2, 512)
+    out[f"K6 long {B} W512"] = timed(k6, 3, 3)
+    out[f"K6 long {B} W512 checksum"] = checksum(k6())
+    del seq_w, L_w, bta_w
+    torch.cuda.empty_cache()
+from recgraph_tpu_torch.ops import cuda_poa_global_win
+
+seq_w, L_w = encode_reads(long_reads[:512], pad_to=2440, device="cuda")
+bta_w = encode_read_aux([int(1 + 0.01 * len(s)) for s in long_reads[:512]], "cuda")
+for W in (256, 512):   # K3 at the mode-0 ladder's rungs
+    k3 = lambda: cuda_poa_global_win.fill_global_win_cuda(dg, table, seq_w, L_w, bta_w, W)
+    out[f"K3 long 512 W{W}"] = timed(k3, 3, 3)
+    out[f"K3 long 512 W{W} checksum"] = checksum(k3())
+    torch.cuda.empty_cache()
 del dg, seq, L, seq_l, L_l, seq_w, L_w, bta_w
 torch.cuda.empty_cache()
 from recgraph_tpu_torch.graph.pathgraph import PathGraph

@@ -1,6 +1,7 @@
-// Mode-0 banded global POA fill (global_abpoa.rs:260-427) for Hopper,
-// full width (poa_global.cu, kWin = false), windowed (poa_global_win.cu,
-// kWin = true) and in the v1 TPU layout (poa_global_v1.cu, kV1 = true).
+// Mode-0 banded global POA fill (global_abpoa.rs:260-427) in a tiled
+// design: the body of K3, windowed (poa_global_win.cu, kWin = true), and
+// of K14, the v1 TPU layout at full width (poa_global_v1.cu, kV1 = true).
+// K1 is poa_global.cu.
 //
 // Computes what poa_engine._fill_global (recgraph_tpu/ops/poa_engine.py:
 // 149-297) and _fill_global_windowed (:300-480) compute, bit for bit:
@@ -22,12 +23,12 @@
 // and best columns live in device-memory scratch the wrapper allocates,
 // so any predecessor span works without a gate.
 //
-// Layouts: K1 and K3 store packed [B, n, W] and lefts / rights [B, n].
+// Layouts: K3 stores packed [B, n, W] and lefts / rights [B, n].
 // With kV1 (K14, W = Lp) the kernel writes the v1 TPU layout itself:
 // packed [n, B, W + 8], with each row's band bounds in lanes W and
 // W + 1 (which the kernel also reads back as its band history), lanes
 // W + 2 .. W + 7 zero; lefts and rights are unused.  The layout is a
-// template flag, so K1's and K3's address arithmetic is what it was.
+// template flag, so K3's address arithmetic is what it was.
 //
 // What bounds it on this card: each row is a chain of dependent steps
 // separated by block barriers (scan, neighbour exchange, argmax, the

@@ -1,13 +1,13 @@
-// The v1 TPU layout of the mode-0 banded global fill (K14), through K1's
-// kernel body (poa_global.cuh, kV1 = true).
+// The v1 TPU layout of the mode-0 banded global fill (K14), through the
+// tiled mode-0 kernel body (poa_global.cuh, kV1 = true) that K3 also runs.
 //
 // Replaces the TPU kernel recgraph_tpu/ops/pallas_poa.py:537 fill_global
 // (v1), which computes K1's function and returns packed int32
 // [n, B, Lp + 8]: lanes [0, Lp) the pred * 16 + dir cells, lane Lp each
 // row's band start, lane Lp + 1 its band end, lanes Lp + 2 .. Lp + 7
 // zero, row n - 1 zero.  The kernel writes that layout itself and keeps
-// its band history in those lanes.  What bounds it is K1's: one block
-// per read, latency-bound on its per-row barriers.
+// its band history in those lanes.  What bounds it: one block per read,
+// latency-bound on its per-row barriers (poa_global.cuh).
 
 #include "poa_global.cuh"
 

@@ -10,7 +10,9 @@ the package so ``chip_smoke.py`` can draw the same graphs without
 importing the test modules (which import the JAX engines).
 ``tests/test_torch_encode.py`` and ``tests/test_torch_rec_graph.py``
 pin the copies to the originals.  ``fan_gfa`` is the port's own: a row
-of modes 6/7 with more hub lanes than the column program's warp holds.
+of modes 6/7 with more hub lanes than the column program's warp holds;
+so is ``bubble_gfa``, whose long bubble moves a windowed fill's window
+back by more than its width.
 """
 
 from __future__ import annotations
@@ -65,6 +67,21 @@ def fan_gfa(k: int) -> Gfa:
     for p in range(k):
         gfa.edges += [(1, p + 2), (p + 2, k + 2)]
         gfa.paths.append(GfaPath(f"p{p}", [1, p + 2, k + 2]))
+    return gfa
+
+
+def bubble_gfa(arm: int, flank: int = 40, seed: int = 0) -> Gfa:
+    """Two flanks joined by two parallel arms of ``arm`` bp, each arm on a
+    path of its own: the first row of the second arm follows the last row
+    of the first in the row order, so a band that follows the read jumps
+    back by about ``arm`` columns there (the port's own; K6's window
+    shifts of W or more)."""
+    rng = random.Random(seed)
+    seq = lambda n: "".join(rng.choice("ACGT") for _ in range(n))  # noqa: E731
+    gfa = Gfa()
+    gfa.segments.update({1: seq(flank), 2: seq(arm), 3: seq(arm), 4: seq(flank)})
+    gfa.edges += [(1, 2), (1, 3), (2, 4), (3, 4)]
+    gfa.paths += [GfaPath("a", [1, 2, 4]), GfaPath("b", [1, 3, 4])]
     return gfa
 
 

@@ -36,10 +36,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
-    # n_cand, B, n, Pm, Lp, m, bsp, score, last_row, last_col, packed,
-    # lefts, rights, wss, stream
-    "rgt_poa_global_fill": [_P] * 9 + [_I] * 5 + [_P] * 9 + [_P],
+    # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand, srow,
+    # store_at, n_cand, B, n, Pm, Lp, cw, warps, full, S, ms, bsp, mfirst,
+    # mlast, score, last_row, last_col, packed, lefts, rights, stream
+    "rgt_poa_global_fill": [_P] * 11 + [_I] * 9 + [_P] * 10 + [_P],
     # ... Lp, W, m, bsp, score, last_row, last_col, packed, lefts,
     # rights, wss, over, stream
     "rgt_poa_global_win_fill": [_P] * 9 + [_I] * 6 + [_P] * 10 + [_P],
@@ -64,9 +64,10 @@ _SIGNATURES = {
     # ys, bsp, mlast, score, last_row, last_col, packed, packed_x,
     # packed_y, lefts, rights, stream
     "rgt_poa_gap_global_fill": [_P] * 11 + [_I] * 12 + [_P] * 12 + [_P],
-    # ... Lp, W, o, e, m, y, bsp, score, last_row, last_col, packed,
+    # K6: ... store_at, n_cand, B, n, Pm, Lp, W, o, e, cw, warps, full,
+    # clamp, S, ms, ys, bsp, mlast, score, last_row, last_col, packed,
     # packed_x, packed_y, lefts, rights, wss, over, stream
-    "rgt_poa_gap_global_win_fill": [_P] * 9 + [_I] * 8 + [_P] * 13 + [_P],
+    "rgt_poa_gap_global_win_fill": [_P] * 11 + [_I] * 13 + [_P] * 14 + [_P],
     # seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n,
     # Pm, Lp, o, e, cw, warps, full, clamp, S, ms, ys, best_val, best_i,
     # best_j, packed, packed_x, packed_y, stream

@@ -11,7 +11,8 @@ clamped chain past that (:func:`check_chain_range` picks).
 The launch layout is K5's (``cuda_poa_gap_local.plan``: warps a read,
 columns a lane, register or full form; one read a block); the rows kept
 in the device scratch are every predecessor of a row other than its row
-i-1 (``cuda_poa_gap_local.stored_rows`` with ``every_row``).
+i-1 (``cuda_poa_gap_local.stored_rows`` with ``every_row``).  K6
+(``cuda_poa_gap_global_win``) is the window form of the same kernel.
 """
 
 from __future__ import annotations

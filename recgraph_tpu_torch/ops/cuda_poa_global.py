@@ -5,6 +5,12 @@ Its plain version is ``poa_engine.fill_global_plain``; both return
 (score, last_row, last_col_abs, packed int32[B, n, Lp], lefts, rights)
 and agree bit for bit, at any read length.
 ``metrics.LAUNCHES["poa_global"]`` counts the launches.
+
+The launch layout is K5's (``cuda_poa_gap_local.plan``: warps a read,
+columns a lane, register or full form; one read a block); the rows kept
+in the device scratch are K4's, every predecessor of a row other than
+its row i-1 (``cuda_poa_gap_local.stored_rows`` with ``every_row``), and
+the full form keeps the read's gap sums G in one more scratch row.
 """
 
 from __future__ import annotations
@@ -12,30 +18,38 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
+from .cuda_poa_gap_local import MAX_SLOTS, Plan, plan, stored_rows
 
 KERNEL = "poa_global"
 SOURCE = "recgraph_tpu_torch/csrc/poa_global.cu"
 REPLACES = "recgraph_tpu/ops/pallas_poa_global2.py:477"
 
 
-def fill_global_cuda(dg, table, seq, L, bta):
-    """Launch the mode-0 fill for a read batch on the tensors' GPU."""
+def fill_global_cuda(dg, table, seq, L, bta, layout: Plan | None = None):
+    """Launch the mode-0 fill for a read batch on the tensors' GPU
+    (``layout``: a :class:`~cuda_poa_gap_local.Plan` to force, else
+    ``plan``'s)."""
     dev = seq.device
     B, Lp = seq.shape
     n = dg.n
     pidx, cand, _ = _kernels.check_inputs(KERNEL, dg, table, seq, L, bta)
+    if dg.max_preds > MAX_SLOTS:
+        raise ValueError(f"{KERNEL}: {dg.max_preds} predecessor slots, at most {MAX_SLOTS}")
+    pl = layout or plan(B, Lp, torch.cuda.get_device_properties(dev).multi_processor_count)
+    store_at, srow, S = stored_rows(dg, pl.full, every_row=True)
+    _kernels.check_tensors(KERNEL, dev, store_at=store_at, srow=srow)
+    S += int(pl.full)   # the full form keeps G, the read's gap sums, in one more row
     i32 = dict(dtype=torch.int32, device=dev)
-    m = torch.empty((B, n, Lp), **i32)       # score scratch
-    bsp = torch.empty((B, n), **i32)         # best column per row
-    wss = torch.empty((B, n), **i32)         # window starts (all 0 here)
+    ms = torch.empty((B, S, Lp), **i32)   # the stored rows' m
+    # each row's best column, m at its band start and m at right - 1
+    bsp, mfirst, mlast = torch.empty((3, B, n), **i32)
     score, last_row, last_col = (torch.empty(B, **i32) for _ in range(3))
     packed = torch.empty((B, n, Lp), **i32)
-    lefts = torch.empty((B, n), **i32)
-    rights = torch.empty((B, n), **i32)
+    lefts, rights = (torch.empty((B, n), **i32) for _ in range(2))
     _kernels.launch(
         KERNEL, (B, n, Lp, Lp), dev,
-        seq, L, bta, table, dg.codes, pidx, dg.min_pred, dg.r_values,
-        cand, int(cand.numel()), B, n, dg.max_preds, Lp, m, bsp, score, last_row,
-        last_col, packed, lefts, rights, wss,
+        seq, L, bta, table, dg.codes, pidx, dg.min_pred, dg.r_values, cand, srow, store_at,
+        int(cand.numel()), B, n, dg.max_preds, Lp, pl.cw, pl.warps, int(pl.full), S, ms, bsp,
+        mfirst, mlast, score, last_row, last_col, packed, lefts, rights,
     )
     return score, last_row, last_col, packed, lefts, rights

@@ -91,13 +91,15 @@ def fill_gap_global_plain(dg, table, seq, L, bta, o, e, chain=False):
                                  chain)[:8]
 
 
-def fill_gap_global_windowed_plain(dg, table, seq, L, bta, o, e, W):
+def fill_gap_global_windowed_plain(dg, table, seq, L, bta, o, e, W, chain=False):
     """Mode-2 fill with W-column windowed rows (long reads).
 
     Returns (score, last_row, last_col_abs, packed, packed_x, packed_y
     int32[B, n, W], lefts, rights, ws int32[B, n], over bool[B]).
+    ``chain`` solves each row's (M, X) recurrence as K6 does (K4's chain
+    on the row's window, :func:`x_chain_band_plain` with ``ws``).
     """
-    return _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, True)
+    return _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, True, chain)
 
 
 def _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, windowed, chain=False):
@@ -199,9 +201,9 @@ def _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, windowed, chain=False
             c_left = c.gather(1, left_rel)[:, 0]
             m_left = torch.where(left == 0, x_left, torch.maximum(c_left, x_left))
             v_left = torch.stack([m_left, x_left], dim=-1)
-            if chain:
+            if chain:   # on the window's absolute columns, the band cut at its end
                 m_row, x_row = x_chain_band_plain(c, x_left, left, right, o, e,
-                                                  clamped=chain == "clamped")
+                                                  clamped=chain == "clamped", ws=ws_i)
             else:
                 m_row, x_row = _affine_row_scan(c, v_left, is_left, in_band, o, e)
             m_row = torch.where(in_band, m_row, NEG)
@@ -258,10 +260,13 @@ def _fill_gap_global_rows(dg, table, seq, L, bta, o, e, W, windowed, chain=False
 # ---------------------------------------------------------------------------
 
 
-def x_chain_band_plain(c, x_left, left, right, o, e, clamped=False):
+def x_chain_band_plain(c, x_left, left, right, o, e, clamped=False, ws=None):
     """The in-row (M, X) recurrence of a band [left, right) from its left
     state, as K4 solves it (K5's is the band [0, Lp) from x = 0; the
-    kernel's c~[0] = 0 there gives the same x[1] = g).
+    kernel's c~[0] = 0 there gives the same x[1] = g; K6's is K4's on a
+    window: ``ws`` int32[B], the window start, makes the W columns of
+    ``c`` the absolute columns ws .. ws + W - 1, so the band is cut at the
+    window's end and ``left == 0`` stays the read's column 0).
 
     With g = max(o + e, e), x[left] = x_left and, in the band,
     x[j+1] = max(x[j] + g, c~[j] + o + e), c~[left] = -inf where left = 0
@@ -280,6 +285,8 @@ def x_chain_band_plain(c, x_left, left, right, o, e, clamped=False):
     g = max(o + e, e)
     dev = c.device
     j = torch.arange(W, dtype=torch.int64, device=dev)[None, :]
+    if ws is not None:
+        j = j + ws.long()[:, None]
     lc, rc = left.long()[:, None], right.long()[:, None]
     in_band = (j >= lc) & (j < rc)
     c64, xl = c.long(), x_left.long()[:, None]
@@ -288,7 +295,7 @@ def x_chain_band_plain(c, x_left, left, right, o, e, clamped=False):
         x = torch.full((B, W), NEG, dtype=torch.int64, device=dev)
         cur = xl.expand(B, 1).clone()
         for k in range(W):
-            kk = torch.full_like(cur, k)
+            kk = j[:, k : k + 1]
             x[:, k : k + 1] = torch.where(kk == lc, xl, cur)
             nxt = torch.maximum(torch.maximum(x[:, k : k + 1] + g, ct[:, k : k + 1] + o + e),
                                 torch.full_like(cur, NEG))

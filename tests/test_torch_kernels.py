@@ -331,6 +331,8 @@ def _gap_local_edge(name, tmp_path):
     example = PoaGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
     if name == "bp1":   # 1-bp reads: one column a lane
         return example, ["$A", "$C", "$G", "$T", "$N"], None, (None,)
+    if name == "lp32":   # reads of 32 columns: one column a lane, and 2 warps of 3 forced
+        return example, [r[:32] for r in seqs[:6]], None, (None, Plan(2, 3, False))
     if name.startswith("lp"):
         # a width of 151 (not a multiple of 4: no 16-byte stores); past a
         # warp of 5 columns a lane; one warp of 7 columns a lane; just past
@@ -436,6 +438,109 @@ def test_local_kernel_at_layout_edges(cuda, tmp_path, name):
         for layout in layouts:
             _assert_equal(cuda_poa_local.fill_local_cuda(dg, table, seq, L, layout), ref,
                           ("K2", name, matrix, layout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lp32"] + WARP_EDGES)
+def test_global_kernel_at_layout_edges(cuda, tmp_path, name):
+    """K1 at the edges of its layout (K4's cases, and reads of 32 columns),
+    all six outputs equal to the plain fill, with both tables: 1, 32, 151,
+    224 and 225 columns, several warps and the full form forced, 40
+    predecessor slots, 3,585 columns and a 4,900-bp read (the full form in
+    one window and in two)."""
+    dg, seq, L, bta, layouts = _edge_inputs(name, tmp_path, cuda)
+    for matrix in ("none", "HOXD70"):
+        if name == "long5k" and matrix == "HOXD70":
+            continue
+        table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table,
+                                dtype=torch.int32).to(cuda)
+        ref = poa_engine.fill_global_plain(dg, table, seq, L, bta)
+        for layout in layouts:
+            _assert_equal(cuda_poa_global.fill_global_cuda(dg, table, seq, L, bta, layout), ref,
+                          ("K1", name, matrix, layout))
+
+
+def _asymmetric_table(device):
+    """The plain table with sm('-', x) != sm(x, '-') for every base x."""
+    tab = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table, dtype=torch.int32).clone()
+    gap = poa_engine.GAP
+    tab[gap, :4] = torch.tensor([-3, -5, -2, -6], dtype=torch.int32)
+    tab[:4, gap] = torch.tensor([-4, -1, -7, -3], dtype=torch.int32)
+    return tab.to(device)
+
+
+@pytest.mark.cuda
+def test_global_kernel_base_case_and_asymmetric_table(cuda):
+    """K1 with bands from column 0 on every row of a read (band slack
+    1,000) on graphs whose start rows' min_pred is not their row i-1 (the
+    base case reads that row's m at its band start from device memory),
+    with a table whose gap row and gap column differ (row 0's gap sums are
+    its own), at the wrapper's layout and forced ones."""
+    Plan = cuda_poa_gap_local.Plan
+    rng = random.Random(77)
+    gf = fuzz.random_gfa(rng, n_nodes=24, n_paths=4, cover_all=True)
+    seqs = fasta.get_sequences(EXAMPLE[0])[0]
+    for g, reads in ((PoaGraph.from_gfa(gf), [fuzz.random_read(rng, gf) for _ in range(6)]),
+                     (PoaGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1])), seqs[:6])):
+        dg = poa_device_graph(g, cuda)
+        minp = dg.host()["min_pred"]
+        assert any(int(minp[i]) != i - 1 for i in range(1, dg.n - 1))
+        seq, L = encode_reads(reads, device=cuda)
+        bta = encode_read_aux([1000, 0, 1, 2, 5, 1000], cuda)
+        for table in (_asymmetric_table(cuda),
+                      torch.as_tensor(ScoreMatrix.create("HOXD70", 2, -4).table).to(cuda)):
+            ref = poa_engine.fill_global_plain(dg, table, seq, L, bta)
+            assert (ref[4][0] == 0).all()
+            for layout in (None, Plan(2, 5, False), Plan(16, 9, True)):
+                _assert_equal(cuda_poa_global.fill_global_cuda(dg, table, seq, L, bta, layout),
+                              ref, ("K1", g.n, layout))
+
+
+def _win_shift_cases(device):
+    """K6's window cases: a two-arm bubble of 600-bp arms (the window jumps
+    back by more than W at the second arm's first row; band slack 400
+    overflows) and a random graph (windows move by +8 and -8)."""
+    bubble = fuzz.bubble_gfa(600, 40, seed=3)
+    rng = random.Random(5)
+    cases = [(PoaGraph.from_gfa(bubble), [fuzz.random_read(rng, bubble) for _ in range(3)],
+              [1, 2, 400])]
+    rng = random.Random(54)
+    gf = fuzz.random_gfa(rng, n_nodes=20, n_paths=6, cover_all=True)
+    reads = [fuzz.random_read(rng, gf) for _ in range(4)]
+    cases.append((PoaGraph.from_gfa(gf), reads, [1, 3, 9, 20]))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [256, 512])
+def test_gap_global_win_kernel_window_shifts(cuda, W):
+    """K6 at W 256 and 512, all ten outputs (``over`` and ``wss``
+    included) equal to the plain windowed fill: windows that move by 0, +8
+    and -8 and back by W or more, a read that overflows its window, both
+    signs of the gap open, a gap open past the prefix-max chain's range
+    (the clamped chain), at the wrapper's layout and forced ones."""
+    Plan = cuda_poa_gap_local.Plan
+    table = torch.as_tensor(ScoreMatrix.create("none", 2, -4).table, dtype=torch.int32).to(cuda)
+    forced = (None, Plan(3, 3, False) if W == 256 else Plan(3, 7, False), Plan(16, 9, True))
+    shifts = set()
+    for g, reads, btas in _win_shift_cases(cuda):
+        dg = poa_device_graph(g, cuda)
+        seq, L = encode_reads(reads, device=cuda)
+        bta = encode_read_aux(btas, cuda)
+        n, Lp = dg.n, seq.shape[1]
+        oc = -((1 << 26) // (2 * n + 2 * Lp + 2)) - 1
+        assert not cuda_poa_gap_global.check_chain_range(oc, -1, n, Lp)
+        for o, e in ((-4, -2), (1, -2), (oc, -1)):
+            ref = poa_gap_engine.fill_gap_global_windowed_plain(dg, table, seq, L, bta, o, e, W)
+            ws = ref[8][:, :-1]
+            d = (ws[:, 1:] - ws[:, :-1]).flatten().tolist()
+            shifts |= {k for k, hit in (("0", 0 in d), ("+8", 8 in d), ("-8", -8 in d),
+                                        ("-W", min(d) <= -W), ("over", bool(ref[9].any())))
+                       if hit}
+            for layout in forced:
+                _assert_equal(cuda_poa_gap_global_win.fill_gap_global_win_cuda(
+                    dg, table, seq, L, bta, o, e, W, layout), ref, ("K6", n, W, o, e, layout))
+    assert shifts == {"0", "+8", "-8", "-W", "over"}
 
 
 @pytest.mark.cuda
