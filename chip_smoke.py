@@ -61,7 +61,10 @@ Phases, in order; any failure raises and the script exits nonzero:
             (o = -30000, the clamped chain; also the full form), K10 on a read
             shorter than W, at W = 34 and with its scratch in device
             memory, K1 on 64 long reads at
-            full width, K3/K6/K10 at W = 32, where reads overflow, K7 in
+            full width, K3/K6/K10 at W = 32, where reads overflow, K3 at
+            W = 8, one warp of 3, 5 and 7 columns a lane (W = 96, 160,
+            224) and at W = 256 and 512 on the bubble (3 warps forced,
+            the full form), K7 in
             mode 5 and K8 in mode 9, on a 126-path graph and past the JAX
             engine's packed-chain gate, K8 on the fragment graphs whose
             reverse graphs have delta-leak rows (clone rows, ghost-alpha
@@ -99,7 +102,9 @@ Phases, in order; any failure raises and the script exits nonzero:
             K16 and K17 at K2's launch shapes and K14 at K1's (their
             plain versions lay out the plain fill that K1's or K2's
             check ran on the same inputs), on the example, random and
-            HOXD70 cases, K15 also at int16 on the example graph (and
+            HOXD70 cases, K14 also at K1's edges (a width of 151, so
+            Lp + 8 is not a multiple of 4; several warps and the full
+            form forced), K15 also at int16 on the example graph (and
             refused at int16 at n = 2,249), and K16's walk
             (walk_local_scores) equal to walk_poa's over K2's planes at
             K2's most launched shape;
@@ -116,6 +121,10 @@ Phases, in order; any failure raises and the script exits nonzero:
             device function runs inside its guided entry, so its launches
             are the guided entry's), and the last line {"ok":
             true, "device": {...}}.
+
+In phase 6, the exactness cases of a kernel that differ only in a knob
+of the kernel (a forced layout, the blocks a read) share one plain
+result.
 
 From phase 4 on, the CPU runs that the card's output is held against
 (the samples, K11's CPU checks and the scalar oracle on a long read)
@@ -574,6 +583,20 @@ def kernel_specs():
                 case("bubble", W=256, oe=(1, -2)),
                 case("bubble", W=512, oe=(-30000, -1), layout=GP(16, 9, True)),
                 case("example", W=32, oe=(-30000, -1))]
+    # K3 at the smallest window and at one warp of 3, 5 and 7 columns a
+    # lane (W 96, 160, 224), and at W 256 and 512 on the bubble (the window
+    # jumps back by W or more) at the wrapper's layout, 3 warps forced and
+    # the full form
+    gk_edges = [case("example", W=8), case("example", W=96),
+                case("example", "HOXD70", W=160), case("example", W=224),
+                case("bubble", W=256), case("bubble", W=256, layout=GP(3, 3, False)),
+                case("bubble", W=512, layout=GP(16, 9, True))]
+    # K14 at K1's edges: a width of 151 (Lp + 8 not a multiple of 4: 4-byte
+    # stores), several warps and the full form forced (the plain fill K1's
+    # check ran on the same inputs)
+    gv_edges = [case("example", width=151), case("example", layout=GP(2, 5, False)),
+                case("example", layout=GP(16, 9, True)),
+                case("fan40", "HOXD70", layout=GP(16, 9, True))]
     gap = [case("tile")] + [case(c, matrix=m, oe=oe, semi=semi) for semi in (False, True)
                             for c, m, oe in (
         ("example", "none", (O, E)), ("p130", "none", (O, E)), ("p33", "none", (O, E)),
@@ -593,7 +616,7 @@ def kernel_specs():
         dict(id="K14", mod=cv.GLOBAL_V1, kern=cv.fill_global_v1_cuda,
              plain=glob(pv.global_v1_layout), shared=True, ab=True, graph="poa", ops=(24, 4),
              args=glob_args, shapes_of=cuda_poa_global.KERNEL,
-             cases=poa + [case("example", "HOXD70")]),
+             cases=poa + [case("example", "HOXD70"), *gv_edges]),
         dict(id="K15", mod=cv.LOCAL_V2, kern=cv.fill_local_v2_cuda,
              plain=loc(pv.local_v2_layout), shared=True, ab=True, graph="poa", ops=(20, 4),
              args=lambda x: (*loc_args(x), getattr(torch, x.dtype)),
@@ -608,7 +631,8 @@ def kernel_specs():
              args=loc_args, shapes_of=cuda_poa_local.KERNEL, cases=local),
         dict(id="K3", mod=cuda_poa_global_win, kern=cuda_poa_global_win.fill_global_win_cuda,
              plain=poa_engine.fill_global_windowed_plain, graph="poa", ops=(26, 6),
-             args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.W), note=over, cases=win),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.W), note=over,
+             cases=win + gk_edges),
         dict(id="K4", mod=cuda_poa_gap_global, kern=cuda_poa_gap_global.fill_gap_global_cuda,
              plain=poa_gap_engine.fill_gap_global_plain, graph="poa", ops=(60, 8),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.o, x.e),
@@ -856,9 +880,17 @@ def hard_case(x, c):
     x.staged = (U, Dc, Dfd, Ypre, lc, x0, tb, nd, fire, isa, after, ai, x.o, x.e)
 
 
-def check_case(spec, label, g, reads, c, timed=False):
+# the knobs of a case that only the kernel reads: cases that differ in
+# them alone share one plain result (``refs`` of check_case)
+KERNEL_KNOBS = ("layout", "cluster", "extra")
+
+
+def check_case(spec, label, g, reads, c, timed=False, refs=None):
     """One kernel call against its plain version on the same inputs
-    (case ``c``); returns (max_abs_err, timing or None)."""
+    (case ``c``); returns (max_abs_err, timing or None).  ``refs``: the
+    kernel's plain results so far by graph, reads and case fields but
+    the kernel's knobs (``KERNEL_KNOBS``), reused where only those
+    differ."""
     from types import SimpleNamespace
 
     import torch
@@ -902,13 +934,20 @@ def check_case(spec, label, g, reads, c, timed=False):
     torch.cuda.synchronize()
     B, Lp = seq.shape
     plain = c["plain"]
-    t0 = time.perf_counter()
-    ref = spec["plain"](*args) if plain is True else got
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 if plain is True else None
-    if plain is True and spec.get("shared"):   # the cached plain fill's time and the layout's
-        ref, plain_ms = ref
-    ref = ref if isinstance(ref, tuple) else (ref,)
+    key = (id(g), tuple(reads), tuple(sorted((k, v) for k, v in c.items()
+                                             if k not in KERNEL_KNOBS)))
+    if refs is not None and plain is True and key in refs:
+        ref, plain_ms = refs[key], None
+    else:
+        t0 = time.perf_counter()
+        ref = spec["plain"](*args) if plain is True else got
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 if plain is True else None
+        if plain is True and spec.get("shared"):   # the cached plain fill's time and the layout's
+            ref, plain_ms = ref
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if refs is not None and plain is True:
+            refs[key] = ref
     if kind == "poa":
         how = f"o={x.o}, e={x.e}" + (f", {x.dtype}" if x.dtype != "int32" else "")
     elif kind == "path":
@@ -1028,9 +1067,11 @@ def check_kernels(shapes, corpora, cases):
             if spec["graph"] == "hard":   # K12 also on the row with the most blocks
                 err = max(err, check_case(spec, f"main path x{launches}", g, reads[:B],
                                           dict(main, W=-1))[0])
+        refs = {}
         for c in spec["cases"]:
             err = max(err, check_case(spec, c["name"], *cases[(corpus_kind(spec), c["name"])],
-                                      c)[0])
+                                      c, refs=refs)[0])
+        del refs
         results[spec["id"]] = dict(spec=spec, err=err, timed=timed)
     return results
 

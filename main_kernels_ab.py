@@ -16,6 +16,10 @@ its kernels) and times with CUDA events, one warm-up first:
   2 with the CLI's o = -4, e = -2 and band slack) on the first 1,241 and
   72 stretch reads: the mean of 3 launches, repeated 3 times, and a
   checksum;
+- K14 (``cuda_poa_variants.fill_global_v1_cuda``) at K1's stretch shapes,
+  859 and 3,047 reads, and on the kernel A/B's batch (``kernel_ab.corpus``:
+  the example reads repeated to 3,047, n = 1,331): the mean of 3
+  launches, repeated 3 times, and a checksum;
 - K5's clamped chain on the first 46 long reads at the CLI's
   -O 100000 -E 1 (a checkout whose wrapper refuses these penalties
   records the refusal), K6 (``cuda_poa_gap_global_win.
@@ -60,7 +64,8 @@ its kernels) and times with CUDA events, one warm-up first:
   mean of 3 launches, repeated 5 times.
 
 Prints one JSON line per ROOT (with the ptxas registers and spill
-stores of the K1, K2, K4 (and K6) and K5 kernels that checkout built)
+stores of the K1 (with K3 and K14), K2, K4 (with K6) and K5 kernels that
+checkout built)
 and the card's ``nvidia-smi`` name and power limit.  Compare two checkouts only within
 one run.  Needs CUDA.
 """
@@ -159,7 +164,19 @@ out["K2 stretch 859 checksum"] = checksum(k2())
 k1 = lambda: poa_engine.fill_global_best(dg, table, sB, LB, bB)   # K1 at the same shape
 out["K1 stretch 859"] = timed(k1, 3, 3)
 out["K1 stretch 859 checksum"] = checksum(k1())
-del dg, seq, L, bta, fills, sB, LB, bB
+from recgraph_tpu_torch import kernel_ab
+from recgraph_tpu_torch.ops import cuda_poa_variants as cv
+
+for B, (sK, LK, bK) in ((859, (sB, LB, bB)), (3047, (seq, L, bta))):   # K14 at K1's shapes
+    k14 = lambda: cv.fill_global_v1_cuda(dg, table, sK, LK, bK)
+    out[f"K14 stretch {B}"] = timed(k14, 3, 3)
+    out[f"K14 stretch {B} checksum"] = checksum(k14())
+    torch.cuda.empty_cache()
+ex = kernel_ab.corpus(3047, "cuda")   # the kernel A/B's K14 (variant g1)
+k14 = lambda: cv.fill_global_v1_cuda(*ex)
+out["K14 example 3047"] = timed(k14, 3, 3)
+out["K14 example 3047 checksum"] = checksum(k14())
+del dg, seq, L, bta, fills, sB, LB, bB, sK, LK, bK, ex, k14
 torch.cuda.empty_cache()
 
 from recgraph_tpu_torch.ops import _kernels

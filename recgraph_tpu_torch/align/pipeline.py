@@ -56,8 +56,8 @@ _BAND_WARNING = "Band length probably too short, maybe try with larger b and f"
 
 def not_ported(what: str) -> NotImplementedError:
     """What the port does not run yet: multi-process runs (ROADMAP
-    queue 1, item 15)."""
-    return NotImplementedError(f"{what}: not yet ported (ROADMAP queue 1, item 15)")
+    queue 1, multi-process runs)."""
+    return NotImplementedError(f"{what}: not yet ported (ROADMAP queue 1, multi-process runs)")
 
 
 @dataclass

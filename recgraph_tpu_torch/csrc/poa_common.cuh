@@ -1,11 +1,11 @@
 // Shared pieces of the POA fill kernels (poa_*.cu).
 //
-// K1, K2, K4, K5 and K6 hold a read's columns in registers across one or
-// a few warps (poa_global.cu, poa_local.cu, poa_gap_global.cu,
-// poa_gap_local.cu) and use the chain and staging helpers below.  The
-// tiled kernels (K3 and the superseded variants) run one thread block per
-// read, and a row's
-// columns are processed in tiles of blockDim.x: thread t owns the columns
+// K1-K6 and K14 hold a read's columns in registers across one or a few
+// warps (poa_global.cu: K1, K3, K14; poa_local.cu; poa_gap_global.cu: K4,
+// K6; poa_gap_local.cu) and use the chain and staging helpers below.  The
+// tiled mode-1 variants (K13, K15-K17, poa_local.cuh) run one thread
+// block per read, and a row's columns are processed in tiles of
+// blockDim.x: thread t owns the columns
 // j = t + k * blockDim.x, k = 0, 1, ..., so a read of any length fits
 // one block.  blockDim.x is the stored row width rounded up to a warp
 // multiple, at most 1024.  Threads past the row's width ("dead" lanes)

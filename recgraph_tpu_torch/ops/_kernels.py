@@ -40,9 +40,12 @@ _SIGNATURES = {
     # store_at, n_cand, B, n, Pm, Lp, cw, warps, full, S, ms, bsp, mfirst,
     # mlast, score, last_row, last_col, packed, lefts, rights, stream
     "rgt_poa_global_fill": [_P] * 11 + [_I] * 9 + [_P] * 10 + [_P],
-    # ... Lp, W, m, bsp, score, last_row, last_col, packed, lefts,
-    # rights, wss, over, stream
-    "rgt_poa_global_win_fill": [_P] * 9 + [_I] * 6 + [_P] * 10 + [_P],
+    # K14: as K1
+    "rgt_poa_global_v1_fill": [_P] * 11 + [_I] * 9 + [_P] * 10 + [_P],
+    # K3: ... store_at, n_cand, B, n, Pm, Lp, W, cw, warps, full, S, ms, gs,
+    # bsp, mfirst, mlast, score, last_row, last_col, packed, lefts, rights,
+    # wss, over, stream
+    "rgt_poa_global_win_fill": [_P] * 11 + [_I] * 10 + [_P] * 13 + [_P],
     # seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n,
     # Pm, Lp, cw, warps, full, S, ms, best_val, best_i, best_j, packed,
     # stream
@@ -55,10 +58,6 @@ _SIGNATURES = {
     "rgt_poa_local_v2_fill": [_P] * 6 + [_I] * 6 + [_P] * 5 + [_P],
     # K16: ... Lp, n_store, m, best_val, best_i, best_j, stream
     "rgt_poa_local_scores_fill": [_P] * 6 + [_I] * 5 + [_P] * 4 + [_P],
-    # K14: seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand,
-    # n_cand, B, n, Pm, Lp, m, bsp, score, last_row, last_col, packed,
-    # wss, stream
-    "rgt_poa_global_v1_fill": [_P] * 9 + [_I] * 5 + [_P] * 7 + [_P],
     # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand, srow,
     # store_at, n_cand, B, n, Pm, Lp, o, e, cw, warps, full, clamp, S, ms,
     # ys, bsp, mlast, score, last_row, last_col, packed, packed_x,

@@ -1,14 +1,15 @@
 """The superseded TPU generations of the mode-0/1 fills on the GPU.
 
 Wrappers of ``csrc/poa_local_variants.cu`` (K13, K15, K16, K17, through
-K2's kernel body) and ``csrc/poa_global_v1.cu`` (K14, through K1's).
-Each returns what its TPU kernel returns, in its layout and element
-type, written by the kernel itself:
+the tiled mode-1 body ``poa_local.cuh``) and of K14, the v1-layout
+form of K1's kernel in ``csrc/poa_global.cu``.  Each returns what its
+TPU kernel returns, in its layout and element type, written by the
+kernel itself:
 
 | Kernel | Replaces | Returns |
 | --- | --- | --- |
 | K13 ``fill_local_v1_cuda`` | ``pallas_poa.py:217 fill_local`` | (best_val, best_i, best_j, packed int32[n, B, Lp]) |
-| K14 ``fill_global_v1_cuda`` | ``pallas_poa.py:537 fill_global`` | (score, last_row, last_col_abs, packed int32[n, B, Lp + 8]); lanes Lp, Lp + 1: band bounds |
+| K14 ``fill_global_v1_cuda`` | ``pallas_poa.py:537 fill_global`` | (score, last_row, last_col_abs, packed int32[n, B, Lp + 8]); lanes Lp, Lp + 1: band bounds; K1's layout plan |
 | K15 ``fill_local_v2_cuda`` | ``pallas_poa_v2.py:182 fill_local_v2`` | (best_val, best_i, best_j, packed int32 or int16 [8 * ceil(n / 8), B, Lp]) |
 | K16 ``fill_local_scores_cuda`` | ``tools/pallas_poa_v3.py:137 fill_local_scores`` | (best_val, best_i, best_j, m int32[8 * ceil((n - 1) / 8), B, Lp]) |
 | K17 ``fill_local_v4_cuda`` | ``tools/pallas_poa_v4.py:218 fill_local_v4`` | (best_val, best_i, best_j, packed int32[8 * ceil((n - 1) / 8), B, Lp]) |
@@ -25,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _kernels
+from . import _kernels, cuda_poa_global
 
 R = 8   # rows per TPU grid step: only the row padding of K15-K17 keeps it
 
@@ -38,7 +39,7 @@ class Kernel(NamedTuple):
 
 _LOCAL_SRC = "recgraph_tpu_torch/csrc/poa_local_variants.cu"
 LOCAL_V1 = Kernel("poa_local_v1", _LOCAL_SRC, "recgraph_tpu/ops/pallas_poa.py:217")
-GLOBAL_V1 = Kernel("poa_global_v1", "recgraph_tpu_torch/csrc/poa_global_v1.cu",
+GLOBAL_V1 = Kernel("poa_global_v1", "recgraph_tpu_torch/csrc/poa_global.cu",
                    "recgraph_tpu/ops/pallas_poa.py:537")
 LOCAL_V2 = Kernel("poa_local_v2", _LOCAL_SRC, "recgraph_tpu/ops/pallas_poa_v2.py:182")
 LOCAL_SCORES = Kernel("poa_local_scores", _LOCAL_SRC, "tools/pallas_poa_v3.py:137")
@@ -117,24 +118,9 @@ def fill_local_v4_cuda(dg, table, seq, L):
     return _local(LOCAL_V4, dg, table, seq, L, rows_v34(dg.n))
 
 
-def fill_global_v1_cuda(dg, table, seq, L, bta):
+def fill_global_v1_cuda(dg, table, seq, L, bta, layout=None):
     """K14: the mode-0 fill with packed int32[n, B, Lp + 8], each row's
-    band bounds in lanes Lp and Lp + 1."""
-    k = GLOBAL_V1
-    dev = seq.device
-    B, Lp = seq.shape
-    n = dg.n
-    pidx, cand, _ = _kernels.check_inputs(k.KERNEL, dg, table, seq, L, bta)
-    i32 = dict(dtype=torch.int32, device=dev)
-    m = torch.empty((B, n, Lp), **i32)       # score scratch
-    bsp = torch.empty((B, n), **i32)         # best column per row
-    wss = torch.empty((B, n), **i32)         # window starts (all 0 here)
-    score, last_row, last_col = (torch.empty(B, **i32) for _ in range(3))
-    packed = torch.empty((n, B, Lp + 8), **i32)
-    _kernels.launch(
-        k.KERNEL, (B, n, Lp, Lp), dev,
-        seq, L, bta, table, dg.codes, pidx, dg.min_pred, dg.r_values,
-        cand, int(cand.numel()), B, n, dg.max_preds, Lp, m, bsp, score, last_row,
-        last_col, packed, wss,
-    )
-    return score, last_row, last_col, packed
+    band bounds in lanes Lp and Lp + 1 (``layout``: a
+    ``cuda_poa_gap_local.Plan`` to force, else K1's)."""
+    return cuda_poa_global.fill_layout(GLOBAL_V1.KERNEL, dg, table, seq, L, bta, layout,
+                                       v1=True)[:4]

@@ -543,6 +543,72 @@ def test_gap_global_win_kernel_window_shifts(cuda, W):
     assert shifts == {"0", "+8", "-8", "-W", "over"}
 
 
+# K3's forced layouts at each window width: one warp at 1, 3, 5 and 7
+# columns a lane where the width allows it, several warps, the full form
+_WIN_LAYOUTS = {
+    32: ((1, 1, False), (2, 1, False), (16, 9, True)),
+    96: ((1, 3, False), (3, 1, False)),
+    160: ((1, 5, False), (2, 3, False)),
+    224: ((1, 7, False), (2, 5, False)),
+    256: ((3, 3, False), (16, 9, True)),
+    512: ((3, 7, False), (16, 9, True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", sorted(_WIN_LAYOUTS))
+def test_global_win_kernel_layouts_and_window_shifts(cuda, W):
+    """K3 at W 32-512 under the wrapper's layout and forced ones (one warp
+    at 1, 3, 5 and 7 columns a lane, several warps, the full form), all
+    eight outputs (``wss`` and ``over`` included) equal to the plain
+    windowed fill: windows that move by 0, +8 and -8 and back by W or
+    more, reads that overflow their window, windows past the read's end,
+    both tables and one whose gap row and gap column differ (row 0's G)."""
+    layouts = (None, *(cuda_poa_gap_local.Plan(*p) for p in _WIN_LAYOUTS[W]))
+    tables = (torch.as_tensor(ScoreMatrix.create("none", 2, -4).table).to(cuda),
+              torch.as_tensor(ScoreMatrix.create("HOXD70", 2, -4).table).to(cuda),
+              _asymmetric_table(cuda))
+    shifts = set()
+    for g, reads, btas in _win_shift_cases(cuda):
+        dg = poa_device_graph(g, cuda)
+        seq, L = encode_reads(reads, device=cuda)
+        bta = encode_read_aux(btas, cuda)
+        for t, table in enumerate(tables):
+            ref = poa_engine.fill_global_windowed_plain(dg, table, seq, L, bta, W)
+            ws = ref[6][:, :-1]
+            d = (ws[:, 1:] - ws[:, :-1]).flatten().tolist()
+            shifts |= {k for k, hit in (("0", 0 in d), ("+8", 8 in d), ("-8", -8 in d),
+                                        ("-W", min(d) <= -W), ("over", bool(ref[7].any())))
+                       if hit}
+            for layout in layouts:
+                _assert_equal(cuda_poa_global_win.fill_global_win_cuda(
+                    dg, table, seq, L, bta, W, layout), ref, ("K3", dg.n, W, t, layout))
+    assert shifts == {"0", "+8", "-8", "-W", "over"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lp151", "forced", "fan40"])
+def test_global_v1_kernel_at_layout_edges(cuda, tmp_path, name):
+    """K14 at K1's layout edges, every lane of packed [n, B, Lp + 8] equal
+    to the plain layout (the band in lanes Lp and Lp + 1, zero lanes Lp + 2
+    .. Lp + 7 and row n - 1 included), with both tables: a width of 151
+    (Lp + 8 not a multiple of 4: 4-byte stores) and of 152 (16-byte
+    stores), several warps and the full form forced, 40 predecessor slots."""
+    Plan = cuda_poa_gap_local.Plan
+    dg, seq, L, bta, layouts = _edge_inputs(name, tmp_path, cuda)
+    Lp = seq.shape[1]
+    assert (Lp % 4 != 0) == (name == "lp151")
+    layouts = dict.fromkeys((*layouts, Plan(2, 5, False), Plan(16, 9, True)))
+    for matrix in ("none", "HOXD70"):
+        table = torch.as_tensor(ScoreMatrix.create(matrix, 2, -4).table,
+                                dtype=torch.int32).to(cuda)
+        ref = pv.fill_global_v1_plain(dg, table, seq, L, bta)
+        assert (ref[3][:, :, Lp + 2:] == 0).all() and (ref[3][-1] == 0).all()
+        for layout in layouts:
+            _assert_equal(cv.fill_global_v1_cuda(dg, table, seq, L, bta, layout), ref,
+                          ("K14", name, matrix, layout))
+
+
 @pytest.mark.cuda
 def test_gap_local_clamped_chain_past_range(cuda, tmp_path):
     """K5 past the prefix-max chain's range, (|o| + |e|) x Lp >= 2^27: the

@@ -124,7 +124,7 @@ def test_unported_paths_raise(example_paths):
     # every mode is ported; multi-process runs are not
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main([*example_paths, "--device", "cpu", "--num-processes", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, multi-process runs"):
         cli.main(["-m", "6", *example_paths, "--device", "cpu", "--num-processes", "2"])
     with pytest.raises(ValueError, match="modes are 0..9"):
         run(Options(*example_paths, alignment_mode=10, device="cpu"))
