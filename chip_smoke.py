@@ -104,8 +104,10 @@ Phases, in order; any failure raises and the script exits nonzero:
             check ran on the same inputs), on the example, random and
             HOXD70 cases, K14 also at K1's edges (a width of 151, so
             Lp + 8 is not a multiple of 4; several warps and the full
-            form forced), K15 also at int16 on the example graph (and
-            refused at int16 at n = 2,249), and K16's walk
+            form forced), K13 and K15 at K2's edges, K15 also at int16
+            on the example graph at widths 152, 151 and 156 (16-, 2-
+            and 4-byte stores; refused at int16 at n = 2,249), and
+            K16's walk
             (walk_local_scores) equal to walk_poa's over K2's planes at
             K2's most launched shape;
 7. kernel   python -m recgraph_tpu_torch.kernel_ab at 3,047 reads over
@@ -597,6 +599,12 @@ def kernel_specs():
     gv_edges = [case("example", width=151), case("example", layout=GP(2, 5, False)),
                 case("example", layout=GP(16, 9, True)),
                 case("fan40", "HOXD70", layout=GP(16, 9, True))]
+    # K15 at int16 on rows of 151 and 156 cells (2- and 4-byte stores; 152
+    # takes 16-byte ones), the latter also on 2 warps and the full form
+    lv_int16 = [case("example", dtype="int16", width=151),
+                case("example", dtype="int16", pad_to=160, width=156),
+                case("example", dtype="int16", pad_to=160, width=156, layout=GP(2, 5, False)),
+                case("example", dtype="int16", pad_to=160, width=156, layout=GP(16, 9, True))]
     gap = [case("tile")] + [case(c, matrix=m, oe=oe, semi=semi) for semi in (False, True)
                             for c, m, oe in (
         ("example", "none", (O, E)), ("p130", "none", (O, E)), ("p33", "none", (O, E)),
@@ -612,7 +620,7 @@ def kernel_specs():
              args=loc_args, cases=local + wl_edges + [case("fan40", "HOXD70")]),
         dict(id="K13", mod=cv.LOCAL_V1, kern=cv.fill_local_v1_cuda,
              plain=loc(pv.local_v1_layout), shared=True, ab=True, graph="poa", ops=(20, 4),
-             args=loc_args, shapes_of=cuda_poa_local.KERNEL, cases=local),
+             args=loc_args, shapes_of=cuda_poa_local.KERNEL, cases=local + wl_edges),
         dict(id="K14", mod=cv.GLOBAL_V1, kern=cv.fill_global_v1_cuda,
              plain=glob(pv.global_v1_layout), shared=True, ab=True, graph="poa", ops=(24, 4),
              args=glob_args, shapes_of=cuda_poa_global.KERNEL,
@@ -621,7 +629,7 @@ def kernel_specs():
              plain=loc(pv.local_v2_layout), shared=True, ab=True, graph="poa", ops=(20, 4),
              args=lambda x: (*loc_args(x), getattr(torch, x.dtype)),
              shapes_of=cuda_poa_local.KERNEL, extra=int16_refused,
-             cases=local + [case("example", dtype="int16")]),
+             cases=local + wl_edges + [case("example", dtype="int16"), *lv_int16]),
         dict(id="K16", mod=cv.LOCAL_SCORES, kern=cv.fill_local_scores_cuda,
              plain=loc(pv.local_scores_layout), shared=True, ab=True, graph="poa",
              ops=(20, 4), args=loc_args, shapes_of=cuda_poa_local.KERNEL, extra=walk_equal,

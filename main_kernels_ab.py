@@ -20,6 +20,12 @@ its kernels) and times with CUDA events, one warm-up first:
   859 and 3,047 reads, and on the kernel A/B's batch (``kernel_ab.corpus``:
   the example reads repeated to 3,047, n = 1,331): the mean of 3
   launches, repeated 3 times, and a checksum;
+- K13 (``fill_local_v1_cuda``) and K15 (``fill_local_v2_cuda`` at int32)
+  at K2's shapes (859 and 3,047 stretch reads, 64 long reads), and K2,
+  K13 and K15 at int32 and int16 on the kernel A/B's batch: the mean of
+  3 launches, repeated 3 times, a checksum, and the bound
+  (``chip_smoke.bound``: bytes over 3.35 TB/s or int32 operations over
+  33.5 TOP/s, computed from the outputs of the checkout's own call);
 - K5's clamped chain on the first 46 long reads at the CLI's
   -O 100000 -E 1 (a checkout whose wrapper refuses these penalties
   records the refusal), K6 (``cuda_poa_gap_global_win.
@@ -164,6 +170,9 @@ out["K2 stretch 859 checksum"] = checksum(k2())
 k1 = lambda: poa_engine.fill_global_best(dg, table, sB, LB, bB)   # K1 at the same shape
 out["K1 stretch 859"] = timed(k1, 3, 3)
 out["K1 stretch 859 checksum"] = checksum(k1())
+from types import SimpleNamespace
+
+import chip_smoke
 from recgraph_tpu_torch import kernel_ab
 from recgraph_tpu_torch.ops import cuda_poa_variants as cv
 
@@ -172,11 +181,37 @@ for B, (sK, LK, bK) in ((859, (sB, LB, bB)), (3047, (seq, L, bta))):   # K14 at 
     out[f"K14 stretch {B}"] = timed(k14, 3, 3)
     out[f"K14 stretch {B} checksum"] = checksum(k14())
     torch.cuda.empty_cache()
-ex = kernel_ab.corpus(3047, "cuda")   # the kernel A/B's K14 (variant g1)
+
+
+def local_ab(key, dg_, seq_, L_, dtypes=(torch.int32,)):
+    """K13 and K15 (at each of ``dtypes``) on one batch: times, checksum
+    and bound (the smoke's, from this call's outputs)."""
+    spec = dict(graph="poa", ops=(20, 4), args=lambda x: (x.dg, x.table, x.seq, x.L))
+    x = SimpleNamespace(dg=dg_, table=table, seq=seq_, L=L_, W=seq_.shape[1])
+    fns = [("K13", lambda: cv.fill_local_v1_cuda(dg_, table, seq_, L_))]
+    for dt in dtypes:
+        fns.append(("K15" + (" int16" if dt == torch.int16 else ""),
+                    lambda dt=dt: cv.fill_local_v2_cuda(dg_, table, seq_, L_, dt)))
+    for name, fn in fns:
+        out[f"{name} {key}"] = timed(fn, 3, 3)
+        got = fn()
+        out[f"{name} {key} checksum"] = checksum(got)
+        out[f"{name} {key} bound ms"] = chip_smoke.bound(spec, x, got)[0]
+        del got
+        torch.cuda.empty_cache()
+
+
+for B, (sK, LK) in ((859, (sB, LB)), (3047, (seq, L))):   # K13 and K15 at K2's shapes
+    local_ab(f"stretch {B}", dg, sK, LK)
+ex = kernel_ab.corpus(3047, "cuda")   # the kernel A/B's K14 (variant g1), K2, K13 and K15
 k14 = lambda: cv.fill_global_v1_cuda(*ex)
 out["K14 example 3047"] = timed(k14, 3, 3)
 out["K14 example 3047 checksum"] = checksum(k14())
-del dg, seq, L, bta, fills, sB, LB, bB, sK, LK, bK, ex, k14
+k2 = lambda: cuda_poa_local.fill_local_cuda(*ex[:4])
+out["K2 example 3047"] = timed(k2, 3, 3)
+out["K2 example 3047 checksum"] = checksum(k2())
+local_ab("example 3047", ex[0], ex[2], ex[3], dtypes=(torch.int32, torch.int16))
+del dg, seq, L, bta, fills, sB, LB, bB, sK, LK, bK, ex, k14, k2
 torch.cuda.empty_cache()
 
 from recgraph_tpu_torch.ops import _kernels
@@ -195,7 +230,6 @@ with open(_kernels.library_path()[:-3] + ".log") as fh:   # -Xptxas -v of this c
             entry = None
 out["ptxas registers, spill stores"] = ptxas
 
-import chip_smoke
 from recgraph_tpu_torch.graph.pathgraph import PathGraph
 from recgraph_tpu_torch.ops import (
     _kernels, cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_rev,
@@ -226,6 +260,7 @@ seq_l, L_l = encode_reads(long_reads[:64], pad_to=2440, device="cuda")
 k2 = lambda: cuda_poa_local.fill_local_cuda(dg, table, seq_l, L_l)
 out["K2 long 64"] = timed(k2, 3, 3)
 out["K2 long 64 checksum"] = checksum(k2())
+local_ab("long 64", dg, seq_l, L_l)
 seq_w, L_w = encode_reads(long_reads[:437], pad_to=2440, device="cuda")
 bta_w = encode_read_aux([int(1 + 0.01 * len(s)) for s in long_reads[:437]], "cuda")
 k6 = lambda: cuda_poa_gap_global_win.fill_gap_global_win_cuda(dg, table, seq_w, L_w, bta_w,

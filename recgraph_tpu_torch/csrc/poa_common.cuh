@@ -1,10 +1,10 @@
 // Shared pieces of the POA fill kernels (poa_*.cu).
 //
-// K1-K6 and K14 hold a read's columns in registers across one or a few
-// warps (poa_global.cu: K1, K3, K14; poa_local.cu; poa_gap_global.cu: K4,
-// K6; poa_gap_local.cu) and use the chain and staging helpers below.  The
-// tiled mode-1 variants (K13, K15-K17, poa_local.cuh) run one thread
-// block per read, and a row's columns are processed in tiles of
+// K1-K6 and K13-K15 hold a read's columns in registers across one or a
+// few warps (poa_global.cu: K1, K3, K14; poa_local.cu: K2, K13, K15;
+// poa_gap_global.cu: K4, K6; poa_gap_local.cu) and use the chain and
+// staging helpers below.  The tiled mode-1 variants (K16, K17,
+// poa_local.cuh) run one thread block per read, and a row's columns are processed in tiles of
 // blockDim.x: thread t owns the columns
 // j = t + k * blockDim.x, k = 0, 1, ..., so a read of any length fits
 // one block.  blockDim.x is the stored row width rounded up to a warp
@@ -225,6 +225,67 @@ __device__ __forceinline__ void warp_flush(const int* st, int len, int np,
         const int k = lane + 32 * u;
         if (k < len) d[k] = v[u];
       }
+    }
+  }
+}
+
+// int32 cells lo, hi as two int16 in one word (lo at the lower address):
+// each keeps its low 16 bits, as a cast to int16 does.
+__device__ __forceinline__ int pack_i16(int lo, int hi) {
+  return (lo & 0xffff) | (int)((unsigned)hi << 16);
+}
+
+// Copy a warp's staged int32 segment (`len` columns at `st`) to the int16
+// row `d` (column 0 of the segment), VW cells a store: 8 (16-byte stores;
+// `d` 16-byte aligned, len a multiple of 8), 2 (4-byte; `d` 4-byte
+// aligned, len even) or 1.  Each lane's shared loads first, then its
+// stores.
+template <int SEG, int VW>
+__device__ __forceinline__ void warp_flush_i16(const int* st, int len, short* d, int lane) {
+  constexpr int U = (SEG / VW + 31) / 32;   // items a lane
+  if constexpr (VW == 8) {
+    int4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = lane + 32 * u;
+      if (8 * k < len) {
+        const int4 lo = reinterpret_cast<const int4*>(st)[2 * k];
+        const int4 hi = reinterpret_cast<const int4*>(st)[2 * k + 1];
+        v[u] = make_int4(pack_i16(lo.x, lo.y), pack_i16(lo.z, lo.w), pack_i16(hi.x, hi.y),
+                         pack_i16(hi.z, hi.w));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = lane + 32 * u;
+      if (8 * k < len) reinterpret_cast<int4*>(d)[k] = v[u];
+    }
+  } else if constexpr (VW == 2) {
+    int v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = lane + 32 * u;
+      if (2 * k < len) {
+        const int2 p = reinterpret_cast<const int2*>(st)[k];
+        v[u] = pack_i16(p.x, p.y);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = lane + 32 * u;
+      if (2 * k < len) reinterpret_cast<int*>(d)[k] = v[u];
+    }
+  } else {
+    short v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = lane + 32 * u;
+      if (k < len) v[u] = (short)st[k];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = lane + 32 * u;
+      if (k < len) d[k] = v[u];
     }
   }
 }

@@ -1,6 +1,9 @@
-// Mode-1 local linear-gap POA fill (local_poa.rs:181-255) for Hopper (K2).
+// Mode-1 local linear-gap POA fill (local_poa.rs:181-255) for Hopper, one
+// kernel body in two forms known when compiling (FORM): K2's layout
+// [B, n, Lp] (K2) and the rows-first layout of the TPU's earlier
+// generations (ROWS: K13 and K15).
 //
-// Replaces the TPU kernel recgraph_tpu/ops/pallas_poa_v5.py:251
+// K2 replaces the TPU kernel recgraph_tpu/ops/pallas_poa_v5.py:251
 // fill_local_v5 and computes what poa_engine._fill_local
 // (recgraph_tpu/ops/poa_engine.py:553-643) computes, bit for bit: the
 // transposed scoring table (sm(seq[j], lnz[i]), sm('-', lnz[i])), the zero
@@ -9,7 +12,20 @@
 // with all-negative cells as O, column 0 and the columns past the read as
 // O, and the row-major running best that moves on a strictly greater row
 // maximum (first column).  It stores packed int32[B, n, Lp] (row n-1 all
-// 0).
+// 0).  K13 replaces recgraph_tpu/ops/pallas_poa.py:217 fill_local and K15
+// recgraph_tpu/ops/pallas_poa_v2.py:182 fill_local_v2: K2's function with
+// packed in the layout [n_store, B, Lp] (K13: n_store = n, int32; K15:
+// n_store = 8 ceil(n / 8), int32 or int16).
+//
+// The rows-first layout (ROWS).  Row i of read b goes to packed at
+// (i B + b) Lp, of element type PT (int or short); rows 0 and n-1 ..
+// n_store-1 are zero, written by the read's own block.  K13's layout is
+// K15's at n_store = n and int32, so the two share one form.  int16
+// cells are staged as int32 (exact: the wrapper refuses n >= 2,048 and
+// max |table| x Lp >= 16k) and keep their low 16 bits in the flush
+// (warp_flush_i16), 8 cells a 16-byte store where Lp % 8 == 0, else 2
+// a 4-byte store where Lp is even, else one a 2-byte store: the wrapper
+// passes the width (i16).  m, the scratch, stays int32.
 //
 // The in-row chain.  m[j] = max(A[j], m[j-1] + sm(seq[j], '-')) with
 // A[j] = max(D[j], U[j], 0) (A[0] = 0) is, with G the read's running sum
@@ -50,11 +66,11 @@
 //   with coalesced 16-byte stores (4-byte ones where Lp is not a multiple
 //   of 4).
 //
-// What bounds it on this card: the bytes of the packed plane (4 a cell)
-// plus 4 a cell of the stored rows; as in K5 a row's latency rules (the
-// rows of a read are sequential, a row a serial chain of one warp).  The
-// one-warp form is compiled for 24 blocks an SM, so a stretch chunk of
-// 3,047 reads is resident at once on 132 SMs.
+// What bounds it on this card: the bytes of the packed plane (4 a cell,
+// 2 in K15's int16 form) plus 4 a cell of the stored rows; as in K5 a
+// row's latency rules (the rows of a read are sequential, a row a serial
+// chain of one warp).  The one-warp form is compiled for 24 blocks an SM,
+// so a stretch chunk of 3,047 reads is resident at once on 132 SMs.
 //
 // The kernel allocates nothing, does not synchronise with the host and
 // runs on the stream it is given.
@@ -67,6 +83,9 @@ constexpr int LC_THREADS = 512;   // threads a block at most
 constexpr int LC_PLANES = 2;      // staged: packed, m
 constexpr int LC_MAX_WARPS = 16;  // warps a read
 constexpr int LC_ONE_BLOCKS = 24; // one-warp blocks an SM (85 registers a thread)
+
+// the forms: K2 ([B, n, Lp]), K13 and K15 (rows first, [n_store, B, Lp])
+enum : int { LC_K2 = 0, LC_ROWS = 1 };
 
 struct LcArgs {
   const int* seq;         // [B, Lp]
@@ -84,7 +103,7 @@ struct LcArgs {
   int* best_val;
   int* best_i;
   int* best_j;
-  int* packed;
+  int* packed;            // int32[B, n, Lp]; ROWS: int32 or int16 [n_store, B, Lp]
 };
 
 // A stored row's m at the lane's columns j0 - 1 .. j0 + CW - 1 (0 outside
@@ -109,10 +128,15 @@ __device__ __forceinline__ void lc_slot(int q, int j0, const int (&vm)[CW + 1], 
   }
 }
 
-// ONE: one warp a read, known when compiling; ALL: the full form.
-template <int CW, bool ALL, bool ONE>
+// ONE: one warp a read, known when compiling; ALL: the full form; FORM:
+// LC_K2 or LC_ROWS; PT: packed's element type (int, or short in ROWS).
+// ROWS: n_store, the rows of packed (rows n-1 .. n_store-1 zero), and at
+// int16 i16, the cells a store (8, 2 or 1).  (They are kernel arguments
+// beside LcArgs: a larger LcArgs changed K2's registers.)
+template <int CW, bool ALL, bool ONE, int FORM, typename PT>
 __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1)
-    poa_local_kernel(const LcArgs a) {
+    poa_local_kernel(const LcArgs a, const int n_store, const int i16) {
+  constexpr bool ROWS = FORM == LC_ROWS;
   __shared__ int s_table[NCODE * NCODE];
   __shared__ int s_tot[2][32];
   __shared__ long long s_best[2][32];
@@ -128,6 +152,14 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
   const int L = a.L[b];
   const int* sb = a.seq + (size_t)b * Lp;
   const size_t plane = (size_t)b * n * Lp;
+  // row i's column j in packed: [B, n, Lp], or (ROWS) [n_store, B, Lp]
+  auto cell = [&](int i, size_t j) -> PT* {
+    if constexpr (ROWS) {
+      return reinterpret_cast<PT*>(a.packed) + ((size_t)i * a.B + b) * Lp + j;
+    } else {
+      return reinterpret_cast<PT*>(a.packed) + (plane + (size_t)i * Lp + j);
+    }
+  };
   int* st2 = reinterpret_cast<int*>(s_dyn) + (size_t)wi * 2 * LC_PLANES * SEG;
   const int win = w * SEG;                          // columns a window
   const int nwin = ALL ? (Lp + win - 1) / win : 1;
@@ -176,15 +208,17 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
     }
   }
 
-  // rows 0 and n-1: all 0 and 'O'; row 0's scratch copy, if any, 0
+  // rows 0 and n-1 (ROWS: n-1 .. n_store-1 after the rows, where the
+  // loop over them costs no registers): all 0 and 'O'; row 0's scratch
+  // copy, if any, 0
   {
     const int s0 = a.store_at[0];
     for (int t = 0; t < nwin; ++t) {
       const int c0 = t * win + wi * SEG;
       for (int k = lane; k < SEG && c0 + k < Lp; k += 32) {
         const size_t j = c0 + k;
-        a.packed[plane + j] = 0;
-        a.packed[plane + (size_t)(n - 1) * Lp + j] = 0;
+        *cell(0, j) = 0;
+        if constexpr (!ROWS) *cell(n - 1, j) = 0;
         if (s0 >= 0) msb[(size_t)s0 * Lp + j] = 0;
       }
     }
@@ -399,13 +433,31 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
       __syncwarp();
       const int len = min(SEG, Lp - c0);
       if (len > 0) {
-        const size_t at = plane + (size_t)i * Lp + c0;
         const int sr = ALL ? i : store;
-        int* const dst[LC_PLANES] = {a.packed + at, msb + (size_t)max(sr, 0) * Lp + c0};
-        if (vec) {
-          warp_flush<SEG, true>(st, len, sr >= 0 ? 2 : 1, dst, lane);
+        if constexpr (sizeof(PT) == 2) {   // K15 at int16: the cells packed, then m
+          PT* const d = cell(i, c0);
+          if (i16 == 8) {
+            warp_flush_i16<SEG, 8>(st, len, d, lane);
+          } else if (i16 == 2) {
+            warp_flush_i16<SEG, 2>(st, len, d, lane);
+          } else {
+            warp_flush_i16<SEG, 1>(st, len, d, lane);
+          }
+          if (sr >= 0) {
+            int* const dm[1] = {msb + (size_t)sr * Lp + c0};
+            if (vec) {
+              warp_flush<SEG, true>(st + SEG, len, 1, dm, lane);
+            } else {
+              warp_flush<SEG, false>(st + SEG, len, 1, dm, lane);
+            }
+          }
         } else {
-          warp_flush<SEG, false>(st, len, sr >= 0 ? 2 : 1, dst, lane);
+          int* const dst[LC_PLANES] = {cell(i, c0), msb + (size_t)max(sr, 0) * Lp + c0};
+          if (vec) {
+            warp_flush<SEG, true>(st, len, sr >= 0 ? 2 : 1, dst, lane);
+          } else {
+            warp_flush<SEG, false>(st, len, sr >= 0 ? 2 : 1, dst, lane);
+          }
         }
       }
     }
@@ -420,6 +472,14 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
     } else {
       if (lane == 0) s_best[rpar][wi] = wbest;
       if (ALL) __syncthreads();   // publishes the row's scratch to every warp
+    }
+  }
+
+  if constexpr (ROWS) {
+    for (int t = 0; t < nwin; ++t) {
+      const int c0 = t * win + wi * SEG;
+      for (int k = lane; k < SEG && c0 + k < Lp; k += 32)
+        for (int r = n - 1; r < n_store; ++r) *cell(r, c0 + k) = 0;
     }
   }
 
@@ -443,30 +503,48 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
   }
 }
 
-template <int CW, bool ALL, bool ONE>
-int local_launch(const LcArgs& a, cudaStream_t stream) {
+template <int CW, bool ALL, bool ONE, int FORM, typename PT>
+int local_launch(const LcArgs& a, int n_store, int i16, cudaStream_t stream) {
   const int threads = 32 * a.warps;
   const int smem = threads / 32 * 2 * LC_PLANES * 32 * CW * (int)sizeof(int);
-  auto kern = poa_local_kernel<CW, ALL, ONE>;
+  auto kern = poa_local_kernel<CW, ALL, ONE, FORM, PT>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<a.B, threads, smem, stream>>>(a);
+  kern<<<a.B, threads, smem, stream>>>(a, n_store, i16);
   return (int)cudaGetLastError();
 }
 
-template <int CW>
-int local_chain(const LcArgs& a, cudaStream_t stream) {
-  return a.warps == 1 ? local_launch<CW, false, true>(a, stream)
-                      : local_launch<CW, false, false>(a, stream);
+template <int CW, int FORM, typename PT>
+int local_chain(const LcArgs& a, int n_store, int i16, cudaStream_t stream) {
+  return a.warps == 1 ? local_launch<CW, false, true, FORM, PT>(a, n_store, i16, stream)
+                      : local_launch<CW, false, false, FORM, PT>(a, n_store, i16, stream);
+}
+
+// The checks and the launch of the three entries.
+template <int FORM, typename PT>
+int local_entry(const LcArgs& a, int n_store, int i16, int cw, int full, cudaStream_t s) {
+  if (a.B < 1 || a.n < 3 || a.Pm < 1 || a.Pm > 4095 || a.Lp < 1 || a.S < 1 || a.warps < 1 ||
+      a.warps > LC_MAX_WARPS || 32 * a.warps > LC_THREADS ||
+      (!full && a.Lp > 32 * cw * a.warps) ||
+      (full && (cw != 9 || a.warps != LC_MAX_WARPS || a.S != a.n + 1)))
+    return (int)cudaErrorInvalidValue;
+  if (full) return local_launch<9, true, false, FORM, PT>(a, n_store, i16, s);
+  switch (cw) {
+    case 1: return local_chain<1, FORM, PT>(a, n_store, i16, s);
+    case 3: return local_chain<3, FORM, PT>(a, n_store, i16, s);
+    case 5: return local_chain<5, FORM, PT>(a, n_store, i16, s);
+    case 7: return local_chain<7, FORM, PT>(a, n_store, i16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rgt
 
-// cw: the columns a lane (1, 3, 5 or 7; 9 in the full form); warps: the
-// warps a read, one read a block (1 to 16; 16 in the full form); full:
+// K2.  cw: the columns a lane (1, 3, 5 or 7; 9 in the full form); warps:
+// the warps a read, one read a block (1 to 16; 16 in the full form); full:
 // every row's m in the scratch (S = n + 1: G's row last).
 extern "C" int rgt_poa_local_fill(
     const int* seq, const int* L, const int* table, const int* codes, const int* node_start,
@@ -474,19 +552,39 @@ extern "C" int rgt_poa_local_fill(
     int cw, int warps, int full, int S, int* ms, int* best_val, int* best_i, int* best_j,
     int* packed, void* stream) {
   using namespace rgt;
-  if (B < 1 || n < 3 || Pm < 1 || Pm > 4095 || Lp < 1 || S < 1 || warps < 1 ||
-      warps > LC_MAX_WARPS || 32 * warps > LC_THREADS || (!full && Lp > 32 * cw * warps) ||
-      (full && (cw != 9 || warps != LC_MAX_WARPS || S != n + 1)))
-    return (int)cudaErrorInvalidValue;
   const LcArgs a{seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n, Pm, Lp,
                  warps, S, ms, best_val, best_i, best_j, packed};
+  return local_entry<LC_K2, int>(a, n, 0, cw, full, (cudaStream_t)stream);
+}
+
+// K13: K2's arguments and n_store (n), packed int32[n_store, B, Lp].
+extern "C" int rgt_poa_local_v1_fill(
+    const int* seq, const int* L, const int* table, const int* codes, const int* node_start,
+    const int* pred_idx, const int* srow, const int* store_at, int B, int n, int Pm, int Lp,
+    int n_store, int cw, int warps, int full, int S, int* ms, int* best_val, int* best_i,
+    int* best_j, int* packed, void* stream) {
+  using namespace rgt;
+  if (n_store < n - 1) return (int)cudaErrorInvalidValue;
+  const LcArgs a{seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n, Pm, Lp,
+                 warps, S, ms, best_val, best_i, best_j, packed};
+  return local_entry<LC_ROWS, int>(a, n_store, 0, cw, full, (cudaStream_t)stream);
+}
+
+// K15: K2's arguments, n_store (8 ceil(n / 8)) and i16, packed
+// [n_store, B, Lp] of int32 (i16 = 0) or int16 (i16: the cells a store, 8,
+// 2 or 1, dividing Lp; the wrapper checks that the values fit).
+extern "C" int rgt_poa_local_v2_fill(
+    const int* seq, const int* L, const int* table, const int* codes, const int* node_start,
+    const int* pred_idx, const int* srow, const int* store_at, int B, int n, int Pm, int Lp,
+    int n_store, int i16, int cw, int warps, int full, int S, int* ms, int* best_val,
+    int* best_i, int* best_j, void* packed, void* stream) {
+  using namespace rgt;
+  if (n_store < n - 1 || !(i16 == 0 || i16 == 1 || i16 == 2 || i16 == 8) ||
+      (i16 && Lp % i16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const LcArgs a{seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n, Pm, Lp,
+                 warps, S, ms, best_val, best_i, best_j, (int*)packed};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (full) return local_launch<9, true, false>(a, s);
-  switch (cw) {
-    case 1: return local_chain<1>(a, s);
-    case 3: return local_chain<3>(a, s);
-    case 5: return local_chain<5>(a, s);
-    case 7: return local_chain<7>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return i16 ? local_entry<LC_ROWS, short>(a, n_store, i16, cw, full, s)
+             : local_entry<LC_ROWS, int>(a, n_store, 0, cw, full, s);
 }

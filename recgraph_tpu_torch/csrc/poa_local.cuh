@@ -1,8 +1,8 @@
 // Mode-1 local POA fill (local_poa.rs:181-255) for Hopper: the kernel
-// body of the superseded TPU layouts of the function
-// (poa_local_variants.cu: K13, K15, K16, K17).  K2, the main path's
-// mode-1 fill, has its own kernel since it was redesigned (poa_local.cu);
-// this body was K2's before that.
+// body of two superseded TPU layouts of the function
+// (poa_local_variants.cu: K16, K17).  K2, the main path's mode-1 fill,
+// has its own kernel since it was redesigned (poa_local.cu), and K13 and
+// K15 are forms of it; this body was K2's before that.
 //
 // Computes what poa_engine._fill_local
 // (recgraph_tpu/ops/poa_engine.py:553-643) computes, bit for bit: the

@@ -1,14 +1,11 @@
-// The superseded TPU generations of the mode-1 fill, each in its own
+// Two superseded TPU generations of the mode-1 fill, each in its own
 // output layout, through one kernel body (poa_local.cuh, K2's before
-// K2 was redesigned).
+// K2 was redesigned).  K13 and K15, two more, are forms of K2's Hopper
+// kernel (poa_local.cu).
 //
 // They compute K2's function; only what they store differs, and the
 // kernel writes each layout itself (no transposing copy afterwards):
 //
-//   K13 rgt_poa_local_v1_fill     packed int32[n, B, Lp]
-//       replaces recgraph_tpu/ops/pallas_poa.py:217 fill_local
-//   K15 rgt_poa_local_v2_fill     packed int32 or int16 [n_store, B, Lp]
-//       replaces recgraph_tpu/ops/pallas_poa_v2.py:182 fill_local_v2
 //   K16 rgt_poa_local_scores_fill the score plane m int32[n_store, B, Lp]
 //       as the output, no packed plane
 //       replaces tools/pallas_poa_v3.py:137 fill_local_scores
@@ -17,9 +14,9 @@
 //
 // Rows [n-1, n_store) of the output plane are zeroed; the wrappers
 // (ops/cuda_poa_variants.py) choose n_store as the TPU kernels pad their
-// rows.  Except for K16, m is an int32[B, n, Lp] scratch the wrapper
-// allocates.  What bounds them: one block per read, latency-bound on its
-// per-row barriers.
+// rows.  K17's m is an int32[B, n, Lp] scratch the wrapper allocates.
+// What bounds them: one block per read, latency-bound on its per-row
+// barriers.
 
 #include "poa_local.cuh"
 
@@ -40,33 +37,6 @@ int launch(const int* seq, const int* L, const int* table, const int* codes,
 }
 
 }  // namespace
-
-// K13: packed [n_store = n, B, Lp]; m scratch [B, n, Lp]
-extern "C" int rgt_poa_local_v1_fill(
-    const int* seq, const int* L, const int* table, const int* codes,
-    const int* node_start, const int* pred_idx, int B, int n, int Pm, int Lp,
-    int n_store, int* m, int* best_val, int* best_i, int* best_j, int* packed,
-    void* stream) {
-  return launch<int, false>(seq, L, table, codes, node_start, pred_idx, B, n,
-                            Pm, Lp, n_store, m, packed, best_val, best_i,
-                            best_j, stream);
-}
-
-// K15: packed [n_store, B, Lp], int16 cells when `i16` (the wrapper
-// checks that pred * 16 + dir fits), else int32; m scratch [B, n, Lp]
-extern "C" int rgt_poa_local_v2_fill(
-    const int* seq, const int* L, const int* table, const int* codes,
-    const int* node_start, const int* pred_idx, int B, int n, int Pm, int Lp,
-    int n_store, int i16, int* m, int* best_val, int* best_i, int* best_j,
-    void* packed, void* stream) {
-  if (i16)
-    return launch<short, false>(seq, L, table, codes, node_start, pred_idx, B,
-                                n, Pm, Lp, n_store, m, (short*)packed, best_val,
-                                best_i, best_j, stream);
-  return launch<int, false>(seq, L, table, codes, node_start, pred_idx, B, n,
-                            Pm, Lp, n_store, m, (int*)packed, best_val, best_i,
-                            best_j, stream);
-}
 
 // K17: packed [n_store, B, Lp] int32; m scratch [B, n, Lp]
 extern "C" int rgt_poa_local_v4_fill(

@@ -50,12 +50,13 @@ _SIGNATURES = {
     # Pm, Lp, cw, warps, full, S, ms, best_val, best_i, best_j, packed,
     # stream
     "rgt_poa_local_fill": [_P] * 8 + [_I] * 8 + [_P] * 5 + [_P],
-    # K13, K17: seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp,
+    # K13: as K2, n_store after Lp
+    "rgt_poa_local_v1_fill": [_P] * 8 + [_I] * 9 + [_P] * 5 + [_P],
+    # K15: as K2, n_store and i16 after Lp
+    "rgt_poa_local_v2_fill": [_P] * 8 + [_I] * 10 + [_P] * 5 + [_P],
+    # K17: seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp,
     # n_store, m, best_val, best_i, best_j, packed, stream
-    "rgt_poa_local_v1_fill": [_P] * 6 + [_I] * 5 + [_P] * 5 + [_P],
     "rgt_poa_local_v4_fill": [_P] * 6 + [_I] * 5 + [_P] * 5 + [_P],
-    # K15: ... Lp, n_store, i16, m, best_val, best_i, best_j, packed, stream
-    "rgt_poa_local_v2_fill": [_P] * 6 + [_I] * 6 + [_P] * 5 + [_P],
     # K16: ... Lp, n_store, m, best_val, best_i, best_j, stream
     "rgt_poa_local_scores_fill": [_P] * 6 + [_I] * 5 + [_P] * 4 + [_P],
     # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand, srow,

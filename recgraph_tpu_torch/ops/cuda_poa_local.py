@@ -1,4 +1,6 @@
-"""Mode-1 fill on the GPU: wrapper of the CUDA kernel ``csrc/poa_local.cu``.
+"""Mode-1 fill on the GPU: wrapper of the CUDA kernel ``csrc/poa_local.cu``
+(K2; its rows-first forms K13 and K15 are ``cuda_poa_variants.
+fill_local_v1_cuda`` and ``fill_local_v2_cuda``).
 
 Replaces ``recgraph_tpu/ops/pallas_poa_v5.py:251 fill_local_v5``.  Its
 plain version is ``poa_engine.fill_local_plain``; both return
@@ -28,23 +30,39 @@ def fill_local_cuda(dg, table, seq, L, layout: Plan | None = None):
     """Launch the mode-1 fill for a read batch on the tensors' GPU
     (``layout``: a :class:`~cuda_poa_gap_local.Plan` to force, else
     ``plan``'s)."""
+    return fill_layout(KERNEL, dg, table, seq, L, layout)
+
+
+def fill_layout(kernel, dg, table, seq, L, layout: Plan | None = None, rows: int | None = None,
+                i16: int | None = None):
+    """Launch K2 (``rows`` None: packed int32[B, n, Lp]) or its rows-first
+    form through the C entry of ``kernel``: packed [rows, B, Lp] with rows
+    n-1 .. rows-1 zero, K13 (``i16`` None) or K15 (``i16`` 0: int32, else
+    int16 with that many cells a store, :func:`~cuda_poa_variants.
+    i16_store_cells`).  The four outputs of :func:`fill_local_cuda` in that
+    layout."""
     dev = seq.device
     B, Lp = seq.shape
     n = dg.n
-    pidx, _, node_start = _kernels.check_inputs(KERNEL, dg, table, seq, L)
+    pidx, _, node_start = _kernels.check_inputs(kernel, dg, table, seq, L)
     if dg.max_preds > MAX_SLOTS:
-        raise ValueError(f"{KERNEL}: {dg.max_preds} predecessor slots, at most {MAX_SLOTS}")
+        raise ValueError(f"{kernel}: {dg.max_preds} predecessor slots, at most {MAX_SLOTS}")
     pl = layout or plan(B, Lp, torch.cuda.get_device_properties(dev).multi_processor_count)
     store_at, srow, S = stored_rows(dg, pl.full)
-    _kernels.check_tensors(KERNEL, dev, store_at=store_at, srow=srow)
+    _kernels.check_tensors(kernel, dev, store_at=store_at, srow=srow)
     S += int(pl.full)   # the full form keeps G, the read's gap sums, in one more row
     i32 = dict(dtype=torch.int32, device=dev)
     ms = torch.empty((B, S, Lp), **i32)   # the stored rows' m
     best_val, best_i, best_j = (torch.empty(B, **i32) for _ in range(3))
-    packed = torch.empty((B, n, Lp), **i32)
+    if rows is None:
+        packed, form = torch.empty((B, n, Lp), **i32), ()
+    else:
+        dtype = torch.int16 if i16 else torch.int32
+        packed = torch.empty((rows, B, Lp), dtype=dtype, device=dev)
+        form = (rows,) if i16 is None else (rows, i16)
     _kernels.launch(
-        KERNEL, (B, n, Lp, Lp), dev,
+        kernel, (B, n, Lp, Lp), dev,
         seq, L, table, dg.codes, node_start, pidx, srow, store_at, B, n, dg.max_preds, Lp,
-        pl.cw, pl.warps, int(pl.full), S, ms, best_val, best_i, best_j, packed,
+        *form, pl.cw, pl.warps, int(pl.full), S, ms, best_val, best_i, best_j, packed,
     )
     return best_val, best_i, best_j, packed

@@ -1,16 +1,17 @@
 """The superseded TPU generations of the mode-0/1 fills on the GPU.
 
-Wrappers of ``csrc/poa_local_variants.cu`` (K13, K15, K16, K17, through
-the tiled mode-1 body ``poa_local.cuh``) and of K14, the v1-layout
-form of K1's kernel in ``csrc/poa_global.cu``.  Each returns what its
-TPU kernel returns, in its layout and element type, written by the
+Wrappers of K13 and K15, the rows-first forms of K2's kernel in
+``csrc/poa_local.cu``, of K14, the v1-layout form of K1's kernel in
+``csrc/poa_global.cu``, and of ``csrc/poa_local_variants.cu`` (K16,
+K17, through the tiled mode-1 body ``poa_local.cuh``).  Each returns what
+its TPU kernel returns, in its layout and element type, written by the
 kernel itself:
 
 | Kernel | Replaces | Returns |
 | --- | --- | --- |
-| K13 ``fill_local_v1_cuda`` | ``pallas_poa.py:217 fill_local`` | (best_val, best_i, best_j, packed int32[n, B, Lp]) |
+| K13 ``fill_local_v1_cuda`` | ``pallas_poa.py:217 fill_local`` | (best_val, best_i, best_j, packed int32[n, B, Lp]); K2's layout plan |
 | K14 ``fill_global_v1_cuda`` | ``pallas_poa.py:537 fill_global`` | (score, last_row, last_col_abs, packed int32[n, B, Lp + 8]); lanes Lp, Lp + 1: band bounds; K1's layout plan |
-| K15 ``fill_local_v2_cuda`` | ``pallas_poa_v2.py:182 fill_local_v2`` | (best_val, best_i, best_j, packed int32 or int16 [8 * ceil(n / 8), B, Lp]) |
+| K15 ``fill_local_v2_cuda`` | ``pallas_poa_v2.py:182 fill_local_v2`` | (best_val, best_i, best_j, packed int32 or int16 [8 * ceil(n / 8), B, Lp]); K2's layout plan |
 | K16 ``fill_local_scores_cuda`` | ``tools/pallas_poa_v3.py:137 fill_local_scores`` | (best_val, best_i, best_j, m int32[8 * ceil((n - 1) / 8), B, Lp]) |
 | K17 ``fill_local_v4_cuda`` | ``tools/pallas_poa_v4.py:218 fill_local_v4`` | (best_val, best_i, best_j, packed int32[8 * ceil((n - 1) / 8), B, Lp]) |
 
@@ -26,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _kernels, cuda_poa_global
+from . import _kernels, cuda_poa_global, cuda_poa_local
 
 R = 8   # rows per TPU grid step: only the row padding of K15-K17 keeps it
 
@@ -38,10 +39,11 @@ class Kernel(NamedTuple):
 
 
 _LOCAL_SRC = "recgraph_tpu_torch/csrc/poa_local_variants.cu"
-LOCAL_V1 = Kernel("poa_local_v1", _LOCAL_SRC, "recgraph_tpu/ops/pallas_poa.py:217")
-GLOBAL_V1 = Kernel("poa_global_v1", "recgraph_tpu_torch/csrc/poa_global.cu",
+LOCAL_V1 = Kernel("poa_local_v1", cuda_poa_local.SOURCE, "recgraph_tpu/ops/pallas_poa.py:217")
+GLOBAL_V1 = Kernel("poa_global_v1", cuda_poa_global.SOURCE,
                    "recgraph_tpu/ops/pallas_poa.py:537")
-LOCAL_V2 = Kernel("poa_local_v2", _LOCAL_SRC, "recgraph_tpu/ops/pallas_poa_v2.py:182")
+LOCAL_V2 = Kernel("poa_local_v2", cuda_poa_local.SOURCE,
+                  "recgraph_tpu/ops/pallas_poa_v2.py:182")
 LOCAL_SCORES = Kernel("poa_local_scores", _LOCAL_SRC, "tools/pallas_poa_v3.py:137")
 LOCAL_V4 = Kernel("poa_local_v4", _LOCAL_SRC, "tools/pallas_poa_v4.py:218")
 
@@ -72,39 +74,47 @@ def check_dtype(dtype, n: int, table, Lp: int) -> None:
                          f"{top} * {Lp} = {top * Lp}")
 
 
-def _local(k: Kernel, dg, table, seq, L, n_store, plane_dtype=torch.int32,
-           scores_only=False, flags=()):
-    """Launch one local variant: (best_val, best_i, best_j, plane
-    [n_store, B, Lp]); ``flags`` are K15's int16 switch."""
+def i16_store_cells(Lp: int) -> int:
+    """The int16 cells K15 writes a store for rows of Lp cells: 8 (16
+    bytes) where a row starts 16-byte aligned (Lp % 8 == 0), else 2 (4
+    bytes) where Lp is even, else 1."""
+    return 8 if Lp % 8 == 0 else 2 if Lp % 2 == 0 else 1
+
+
+def _local(k: Kernel, dg, table, seq, L, n_store, scores_only=False):
+    """Launch K16 or K17: (best_val, best_i, best_j, plane int32
+    [n_store, B, Lp])."""
     dev = seq.device
     B, Lp = seq.shape
     n = dg.n
     pidx, _, node_start = _kernels.check_inputs(k.KERNEL, dg, table, seq, L)
     i32 = dict(dtype=torch.int32, device=dev)
     best_val, best_i, best_j = (torch.empty(B, **i32) for _ in range(3))
-    plane = torch.empty((n_store, B, Lp), dtype=plane_dtype, device=dev)
+    plane = torch.empty((n_store, B, Lp), **i32)
     head = (seq, L, table, dg.codes, node_start, pidx, B, n, dg.max_preds, Lp)
     shape = (B, n, Lp, Lp)
     if scores_only:   # m is the output
         _kernels.launch(k.KERNEL, shape, dev, *head, n_store, plane, best_val, best_i, best_j)
     else:
         m = torch.empty((B, n, Lp), **i32)   # score scratch
-        _kernels.launch(k.KERNEL, shape, dev, *head, n_store, *flags, m, best_val, best_i,
-                        best_j, plane)
+        _kernels.launch(k.KERNEL, shape, dev, *head, n_store, m, best_val, best_i, best_j,
+                        plane)
     return best_val, best_i, best_j, plane
 
 
-def fill_local_v1_cuda(dg, table, seq, L):
-    """K13: the mode-1 fill with packed int32[n, B, Lp]."""
-    return _local(LOCAL_V1, dg, table, seq, L, dg.n)
+def fill_local_v1_cuda(dg, table, seq, L, layout=None):
+    """K13: the mode-1 fill with packed int32[n, B, Lp] (``layout``: a
+    ``cuda_poa_gap_local.Plan`` to force, else K2's)."""
+    return cuda_poa_local.fill_layout(LOCAL_V1.KERNEL, dg, table, seq, L, layout, rows=dg.n)
 
 
-def fill_local_v2_cuda(dg, table, seq, L, dtype=torch.int32):
+def fill_local_v2_cuda(dg, table, seq, L, dtype=torch.int32, layout=None):
     """K15: the mode-1 fill with packed [rows_v2(n), B, Lp] of ``dtype``
-    (int32, or int16 where :func:`check_dtype` passes)."""
+    (int32, or int16 where :func:`check_dtype` passes; ``layout`` as K13's)."""
     check_dtype(dtype, dg.n, table, seq.shape[1])
-    i16 = dtype == torch.int16
-    return _local(LOCAL_V2, dg, table, seq, L, rows_v2(dg.n), dtype, flags=(int(i16),))
+    i16 = i16_store_cells(seq.shape[1]) if dtype == torch.int16 else 0
+    return cuda_poa_local.fill_layout(LOCAL_V2.KERNEL, dg, table, seq, L, layout,
+                                      rows=rows_v2(dg.n), i16=i16)
 
 
 def fill_local_scores_cuda(dg, table, seq, L):

@@ -14,6 +14,7 @@ version's (and the XLA engine's) expression does.
 """
 
 import contextlib
+import functools
 import io
 import os
 import random
@@ -1148,33 +1149,48 @@ def test_gap67_hardrow_kernel_matches_plain_wide(cuda, tmp_path, name):
             _assert_equal(tuple(t.cpu() for t in got), ref, (name, semi, i))
 
 
-def _variant_pairs(dg, table, seq, L, bta):
-    """(name, kernel, plain, args) for K13-K17; K15 at both element types
-    where int16 holds the values."""
+def _variant_pairs(dg, table, seq, L, bta, layout=None):
+    """(name, kernel, plain, args) for K13-K17, or at a forced ``layout``
+    for the kernels that take one (K13, K14, K15); K15 at both element
+    types where int16 holds the values."""
     loc = (dg, table, seq, L)
-    pairs = [("K13", cv.fill_local_v1_cuda, pv.fill_local_v1_plain, loc),
-             ("K14", cv.fill_global_v1_cuda, pv.fill_global_v1_plain, (*loc, bta)),
-             ("K15 int32", cv.fill_local_v2_cuda, pv.fill_local_v2_plain, loc),
-             ("K16", cv.fill_local_scores_cuda, pv.fill_local_scores_plain, loc),
-             ("K17", cv.fill_local_v4_cuda, pv.fill_local_v4_plain, loc)]
+    lay = {} if layout is None else {"layout": layout}
+    pairs = [("K13", functools.partial(cv.fill_local_v1_cuda, **lay), pv.fill_local_v1_plain,
+              loc),
+             ("K14", functools.partial(cv.fill_global_v1_cuda, **lay), pv.fill_global_v1_plain,
+              (*loc, bta)),
+             ("K15 int32", functools.partial(cv.fill_local_v2_cuda, **lay),
+              pv.fill_local_v2_plain, loc)]
+    if layout is None:
+        pairs += [("K16", cv.fill_local_scores_cuda, pv.fill_local_scores_plain, loc),
+                  ("K17", cv.fill_local_v4_cuda, pv.fill_local_v4_plain, loc)]
     try:
         cv.check_dtype(torch.int16, dg.n, table, seq.shape[1])
-        pairs.append(("K15 int16", cv.fill_local_v2_cuda, pv.fill_local_v2_plain,
-                      (*loc, torch.int16)))
+        pairs.append(("K15 int16", functools.partial(cv.fill_local_v2_cuda, **lay),
+                      pv.fill_local_v2_plain, (*loc, torch.int16)))
     except ValueError:
         pass
     return pairs
 
 
-def _assert_variants_match(g, reads, btas, sm, device):
+def _assert_variants_match(g, reads, btas, sm, device, layouts=(None,), width=None):
     """K13-K17 equal their plain versions, and K16's walk equals walk_poa's
-    over K2's packed planes."""
+    over K2's packed planes; with ``layouts``, K13-K15 at each forced
+    layout (``width``: the read width to cut the encoded reads to)."""
     dg = poa_device_graph(g, device)
     table = torch.as_tensor(sm.table, dtype=torch.int32).to(device)
-    seq, L = encode_reads(reads, device=device)
+    seq, L = encode_reads(reads, pad_to=width, device=device)
+    if width is not None:
+        seq = seq[:, :width].contiguous()
     bta = encode_read_aux(btas, device)
-    for name, kern, plain, args in _variant_pairs(dg, table, seq, L, bta):
-        _assert_equal(kern(*args), plain(*args), name)
+    refs = {}   # a kernel's plain result, shared by its layouts
+    for layout in layouts:
+        for name, kern, plain, args in _variant_pairs(dg, table, seq, L, bta, layout):
+            if name not in refs:
+                refs[name] = plain(*args)
+            _assert_equal(kern(*args), refs[name], (name, layout))
+    if layouts != (None,):
+        return
     _, bi, bj, m = cv.fill_local_scores_cuda(dg, table, seq, L)
     packed = cuda_poa_local.fill_local_cuda(dg, table, seq, L)[3]
     W = tb.max_walk_steps(dg.n, seq.shape[1])
@@ -1206,6 +1222,44 @@ def test_variant_kernels_match_plain_random(cuda, seed):
     btas = [rng.choice([0, 1, 2, 5, 1000]) for _ in reads]
     sm = ScoreMatrix.create("HOXD70" if seed % 3 == 0 else "none", 2, -4)
     _assert_variants_match(g, reads, btas, sm, cuda)
+
+
+# K13 and K15 (and K14) at forced layouts of their kernels: the read width
+# and the layouts (one warp at 1, 3, 5 and 7 columns a lane, several warps,
+# the full form); widths of 151 and 156 take K15's int16 rows in 2-byte and
+# 4-byte stores (16-byte ones where Lp % 8 == 0)
+_VARIANT_LAYOUTS = {
+    "cw1": (32, ((1, 1, False), (2, 1, False))),
+    "cw3": (96, ((1, 3, False), (2, 3, False))),
+    "cw5": (160, ((1, 5, False), (2, 5, False), (16, 9, True))),
+    "cw7": (224, ((1, 7, False), (16, 9, True))),
+    "lp151": (151, (None, (2, 5, False), (16, 9, True))),
+    "lp156": (156, (None, (1, 5, False), (2, 5, False), (16, 9, True))),
+}
+# fuzz.random_gfa(random.Random(seed), n_nodes=60) -> n % 8: K15 zeroes 1,
+# 8 and 2 rows past row n-2
+_VARIANT_SEEDS = {0: 3008, 1: 3027, 7: 3000}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rem", sorted(_VARIANT_SEEDS))
+@pytest.mark.parametrize("name", sorted(_VARIANT_LAYOUTS))
+def test_variant_kernels_at_layouts(cuda, name, rem):
+    """K13 and K15 (int32 and int16) bit for bit their plain versions at
+    forced layouts of K2's kernel, on random DAGs whose row count n has
+    n % 8 of 0, 1 and 7, with reads that fill the width."""
+    width, layouts = _VARIANT_LAYOUTS[name]
+    rng = random.Random(_VARIANT_SEEDS[rem])
+    gf = fuzz.random_gfa(rng, n_nodes=60, n_paths=4, cover_all=True)
+    g = PoaGraph.from_gfa(gf)
+    assert poa_device_graph(g, cuda).n % 8 == rem
+    reads = [fuzz.random_read(rng, gf) for _ in range(5)] + ["$A"]
+    reads += ["$" + "".join(rng.choice("ACGT") for _ in range(k)) for k in (width // 2, width)]
+    reads = [r[:width] for r in reads]
+    btas = [rng.choice([0, 1, 2, 5, 1000]) for _ in reads]
+    sm = ScoreMatrix.create("none", 2, -4)
+    _assert_variants_match(g, reads, btas, sm, cuda,
+                           tuple(p and cuda_poa_gap_local.Plan(*p) for p in layouts), width)
 
 
 @pytest.mark.cuda
