@@ -104,12 +104,11 @@ Phases, in order; any failure raises and the script exits nonzero:
             check ran on the same inputs), on the example, random and
             HOXD70 cases, K14 also at K1's edges (a width of 151, so
             Lp + 8 is not a multiple of 4; several warps and the full
-            form forced), K13 and K15 at K2's edges, K15 also at int16
-            on the example graph at widths 152, 151 and 156 (16-, 2-
-            and 4-byte stores; refused at int16 at n = 2,249), and
-            K16's walk
-            (walk_local_scores) equal to walk_poa's over K2's planes at
-            K2's most launched shape;
+            form forced), K13, K15, K16 and K17 at K2's edges, K15
+            also at int16 on the example graph at widths 152, 151 and
+            156 (16-, 2- and 4-byte stores; refused at int16 at n =
+            2,249), and K16's walk (walk_local_scores) equal to
+            walk_poa's over K2's planes at K2's most launched shape;
 7. kernel   python -m recgraph_tpu_torch.kernel_ab at 3,047 reads over
    A/B      every ported variant (v1 v2 v3 v4 v5 plain g1 g2: K13-K17, K2,
             the plain fill, K14, K1), each held to its plain version;
@@ -633,10 +632,10 @@ def kernel_specs():
         dict(id="K16", mod=cv.LOCAL_SCORES, kern=cv.fill_local_scores_cuda,
              plain=loc(pv.local_scores_layout), shared=True, ab=True, graph="poa",
              ops=(20, 4), args=loc_args, shapes_of=cuda_poa_local.KERNEL, extra=walk_equal,
-             cases=local),
+             cases=local + wl_edges),
         dict(id="K17", mod=cv.LOCAL_V4, kern=cv.fill_local_v4_cuda,
              plain=loc(pv.local_v4_layout), shared=True, ab=True, graph="poa", ops=(20, 4),
-             args=loc_args, shapes_of=cuda_poa_local.KERNEL, cases=local),
+             args=loc_args, shapes_of=cuda_poa_local.KERNEL, cases=local + wl_edges),
         dict(id="K3", mod=cuda_poa_global_win, kern=cuda_poa_global_win.fill_global_win_cuda,
              plain=poa_engine.fill_global_windowed_plain, graph="poa", ops=(26, 6),
              args=lambda x: (x.dg, x.table, x.seq, x.L, x.bta, x.W), note=over,

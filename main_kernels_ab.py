@@ -20,10 +20,11 @@ its kernels) and times with CUDA events, one warm-up first:
   859 and 3,047 reads, and on the kernel A/B's batch (``kernel_ab.corpus``:
   the example reads repeated to 3,047, n = 1,331): the mean of 3
   launches, repeated 3 times, and a checksum;
-- K13 (``fill_local_v1_cuda``) and K15 (``fill_local_v2_cuda`` at int32)
-  at K2's shapes (859 and 3,047 stretch reads, 64 long reads), and K2,
-  K13 and K15 at int32 and int16 on the kernel A/B's batch: the mean of
-  3 launches, repeated 3 times, a checksum, and the bound
+- K13 (``fill_local_v1_cuda``), K15 (``fill_local_v2_cuda`` at int32),
+  K16 (``fill_local_scores_cuda``) and K17 (``fill_local_v4_cuda``) at
+  K2's shapes (859 and 3,047 stretch reads, 64 long reads), and K2, K13,
+  K15 at int32 and int16, K16 and K17 on the kernel A/B's batch: the mean
+  of 3 launches, repeated 3 times, a checksum, and the bound
   (``chip_smoke.bound``: bytes over 3.35 TB/s or int32 operations over
   33.5 TOP/s, computed from the outputs of the checkout's own call);
 - K5's clamped chain on the first 46 long reads at the CLI's
@@ -184,14 +185,16 @@ for B, (sK, LK, bK) in ((859, (sB, LB, bB)), (3047, (seq, L, bta))):   # K14 at 
 
 
 def local_ab(key, dg_, seq_, L_, dtypes=(torch.int32,)):
-    """K13 and K15 (at each of ``dtypes``) on one batch: times, checksum
-    and bound (the smoke's, from this call's outputs)."""
+    """K13, K15 (at each of ``dtypes``), K16 and K17 on one batch: times,
+    checksum and bound (the smoke's, from this call's outputs)."""
     spec = dict(graph="poa", ops=(20, 4), args=lambda x: (x.dg, x.table, x.seq, x.L))
     x = SimpleNamespace(dg=dg_, table=table, seq=seq_, L=L_, W=seq_.shape[1])
     fns = [("K13", lambda: cv.fill_local_v1_cuda(dg_, table, seq_, L_))]
     for dt in dtypes:
         fns.append(("K15" + (" int16" if dt == torch.int16 else ""),
                     lambda dt=dt: cv.fill_local_v2_cuda(dg_, table, seq_, L_, dt)))
+    fns += [("K16", lambda: cv.fill_local_scores_cuda(dg_, table, seq_, L_)),
+            ("K17", lambda: cv.fill_local_v4_cuda(dg_, table, seq_, L_))]
     for name, fn in fns:
         out[f"{name} {key}"] = timed(fn, 3, 3)
         got = fn()
@@ -201,9 +204,9 @@ def local_ab(key, dg_, seq_, L_, dtypes=(torch.int32,)):
         torch.cuda.empty_cache()
 
 
-for B, (sK, LK) in ((859, (sB, LB)), (3047, (seq, L))):   # K13 and K15 at K2's shapes
+for B, (sK, LK) in ((859, (sB, LB)), (3047, (seq, L))):   # K13, K15-K17 at K2's shapes
     local_ab(f"stretch {B}", dg, sK, LK)
-ex = kernel_ab.corpus(3047, "cuda")   # the kernel A/B's K14 (variant g1), K2, K13 and K15
+ex = kernel_ab.corpus(3047, "cuda")   # the kernel A/B's K14 (variant g1), K2, K13, K15-K17
 k14 = lambda: cv.fill_global_v1_cuda(*ex)
 out["K14 example 3047"] = timed(k14, 3, 3)
 out["K14 example 3047 checksum"] = checksum(k14())

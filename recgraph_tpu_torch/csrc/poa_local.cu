@@ -1,7 +1,8 @@
 // Mode-1 local linear-gap POA fill (local_poa.rs:181-255) for Hopper, one
-// kernel body in two forms known when compiling (FORM): K2's layout
-// [B, n, Lp] (K2) and the rows-first layout of the TPU's earlier
-// generations (ROWS: K13 and K15).
+// kernel body in three forms known when compiling (FORM): K2's layout
+// [B, n, Lp] (K2), the rows-first layout of the TPU's earlier generations
+// (ROWS: K13, K15 and K17) and the rows-first score plane without
+// directions (SCORES: K16).
 //
 // K2 replaces the TPU kernel recgraph_tpu/ops/pallas_poa_v5.py:251
 // fill_local_v5 and computes what poa_engine._fill_local
@@ -15,7 +16,13 @@
 // 0).  K13 replaces recgraph_tpu/ops/pallas_poa.py:217 fill_local and K15
 // recgraph_tpu/ops/pallas_poa_v2.py:182 fill_local_v2: K2's function with
 // packed in the layout [n_store, B, Lp] (K13: n_store = n, int32; K15:
-// n_store = 8 ceil(n / 8), int32 or int16).
+// n_store = 8 ceil(n / 8), int32 or int16).  K17 replaces
+// tools/pallas_poa_v4.py:218 fill_local_v4: ROWS at n_store =
+// 8 ceil((n - 1) / 8), int32 (n_store = n - 1 where (n - 1) % 8 == 0: row
+// n-1 is then not stored and nothing is zeroed past the rows).  K16
+// replaces tools/pallas_poa_v3.py:137 fill_local_scores: the score plane m
+// int32[n_store, B, Lp] at K17's n_store, rows first, as the output and no
+// packed plane (SCORES).
 //
 // The rows-first layout (ROWS).  Row i of read b goes to packed at
 // (i B + b) Lp, of element type PT (int or short); rows 0 and n-1 ..
@@ -26,6 +33,16 @@
 // (warp_flush_i16), 8 cells a 16-byte store where Lp % 8 == 0, else 2
 // a 4-byte store where Lp is even, else one a 2-byte store: the wrapper
 // passes the width (i16).  m, the scratch, stays int32.
+//
+// The score plane (SCORES).  Row i's m (0 at column 0, NEG past the read;
+// row 0 and rows n-1 .. n_store-1 zero) goes to (i B + b) Lp.  A row
+// keeps the first-best sweeps that A needs and computes m and the row
+// best; the direction work (slot indices, L, the cell) is not done, and
+// one plane (m) is staged.  Every row of m is in the output, so a start
+// row reads its far predecessors (and the full form row i-1) there, at
+// row stride B Lp, and the scratch holds only the full form's G row (S =
+// 1).  (Writing them to K2's stored-rows scratch as well, and reading
+// them there, was 8-13 % slower at 3,047 x 152: H100 80GB HBM3, 700 W.)
 //
 // The in-row chain.  m[j] = max(A[j], m[j-1] + sm(seq[j], '-')) with
 // A[j] = max(D[j], U[j], 0) (A[0] = 0) is, with G the read's running sum
@@ -67,7 +84,8 @@
 //   of 4).
 //
 // What bounds it on this card: the bytes of the packed plane (4 a cell,
-// 2 in K15's int16 form) plus 4 a cell of the stored rows; as in K5 a
+// 2 in K15's int16 form; K16's m plane 4) plus 4 a cell of the stored
+// rows (none in K16); as in K5 a
 // row's latency rules (the rows of a read are sequential, a row a serial
 // chain of one warp).  The one-warp form is compiled for 24 blocks an SM,
 // so a stretch chunk of 3,047 reads is resident at once on 132 SMs.
@@ -84,8 +102,10 @@ constexpr int LC_PLANES = 2;      // staged: packed, m
 constexpr int LC_MAX_WARPS = 16;  // warps a read
 constexpr int LC_ONE_BLOCKS = 24; // one-warp blocks an SM (85 registers a thread)
 
-// the forms: K2 ([B, n, Lp]), K13 and K15 (rows first, [n_store, B, Lp])
-enum : int { LC_K2 = 0, LC_ROWS = 1 };
+// the forms: K2 ([B, n, Lp]), K13, K15 and K17 (rows first, [n_store, B,
+// Lp]), K16 (m rows first, [n_store, B, Lp])
+enum : int { LC_K2 = 0, LC_ROWS = 1, LC_SCORES = 2 };
+
 
 struct LcArgs {
   const int* seq;         // [B, Lp]
@@ -103,7 +123,8 @@ struct LcArgs {
   int* best_val;
   int* best_i;
   int* best_j;
-  int* packed;            // int32[B, n, Lp]; ROWS: int32 or int16 [n_store, B, Lp]
+  int* packed;            // int32[B, n, Lp]; ROWS: int32 or int16 [n_store, B, Lp];
+                          // SCORES: m int32[n_store, B, Lp]
 };
 
 // A stored row's m at the lane's columns j0 - 1 .. j0 + CW - 1 (0 outside
@@ -129,14 +150,18 @@ __device__ __forceinline__ void lc_slot(int q, int j0, const int (&vm)[CW + 1], 
 }
 
 // ONE: one warp a read, known when compiling; ALL: the full form; FORM:
-// LC_K2 or LC_ROWS; PT: packed's element type (int, or short in ROWS).
-// ROWS: n_store, the rows of packed (rows n-1 .. n_store-1 zero), and at
+// LC_K2, LC_ROWS or LC_SCORES; PT: packed's element type (int, or short
+// in ROWS).  ROWS and SCORES: n_store, the rows of the output (rows n-1 ..
+// n_store-1 zero), and at
 // int16 i16, the cells a store (8, 2 or 1).  (They are kernel arguments
 // beside LcArgs: a larger LcArgs changed K2's registers.)
 template <int CW, bool ALL, bool ONE, int FORM, typename PT>
 __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1)
     poa_local_kernel(const LcArgs a, const int n_store, const int i16) {
-  constexpr bool ROWS = FORM == LC_ROWS;
+  constexpr bool SCORES = FORM == LC_SCORES;
+  constexpr bool ROWS = FORM != LC_K2;                 // rows first
+  constexpr int NPL = SCORES ? 1 : LC_PLANES;          // staged planes
+  constexpr int MPL = NPL - 1;                         // m's staged plane
   __shared__ int s_table[NCODE * NCODE];
   __shared__ int s_tot[2][32];
   __shared__ long long s_best[2][32];
@@ -160,12 +185,20 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
       return reinterpret_cast<PT*>(a.packed) + (plane + (size_t)i * Lp + j);
     }
   };
-  int* st2 = reinterpret_cast<int*>(s_dyn) + (size_t)wi * 2 * LC_PLANES * SEG;
+  int* st2 = reinterpret_cast<int*>(s_dyn) + (size_t)wi * 2 * NPL * SEG;
   const int win = w * SEG;                          // columns a window
   const int nwin = ALL ? (Lp + win - 1) / win : 1;
   const bool vec = (Lp & 3) == 0;
   int* msb = a.ms + (size_t)b * a.S * Lp;
   int* gsb = msb + (size_t)(a.S - 1) * Lp;          // the full form's G row
+  // row p's m: scratch row s, or (SCORES) row p of the output
+  auto m_at = [&](int p, int s) -> const int* {
+    if constexpr (SCORES) {
+      return reinterpret_cast<const int*>(cell(p, 0));
+    } else {
+      return msb + (size_t)s * Lp;
+    }
+  };
 
   // G, the running sum of sm(seq[j], '-'), at the lane's columns (the full
   // form: into its scratch row, window by window); the read's codes
@@ -219,7 +252,7 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
         const size_t j = c0 + k;
         *cell(0, j) = 0;
         if constexpr (!ROWS) *cell(n - 1, j) = 0;
-        if (s0 >= 0) msb[(size_t)s0 * Lp + j] = 0;
+        if (!SCORES && s0 >= 0) msb[(size_t)s0 * Lp + j] = 0;
       }
     }
   }
@@ -257,7 +290,7 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
     const int* si = a.srow + (size_t)i * Pm;
     const int gnode = s_table[GAP * NCODE + code];   // transposed: sm('-', lnz[i])
     const int rpar = i & 1;
-    int* st = st2 + rpar * LC_PLANES * SEG;   // staging, by row parity
+    int* st = st2 + rpar * NPL * SEG;   // staging, by row parity
 
     int wcarry = INT_MIN;            // the max of A - G over the windows before
     long long wbest = LLONG_MIN;     // the warp's best (value, first column) of the row
@@ -265,12 +298,12 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
       const int c0 = t * win + wi * SEG;   // the warp's first column
       const int j0 = c0 + lane * CW;       // the lane's first column
       const int kpar = ALL ? ((i * nwin + t) & 1) : rpar;
-      if (ALL) st = st2 + kpar * LC_PLANES * SEG;
+      if (ALL) st = st2 + kpar * NPL * SEG;
       unsigned cr = codes_reg;
       int ml;   // row i-1's m at j0 - 1
       if (ALL) {
         cr = 0;
-        const int* mp = msb + (size_t)(i - 1) * Lp;
+        const int* mp = m_at(i - 1, i - 1);
 #pragma unroll
         for (int c = 0; c < CW; ++c) {
           const int j = j0 + c;
@@ -307,7 +340,7 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
 #pragma unroll
             for (int c = 0; c < CW; ++c) vm[c + 1] = mu[c];
           } else {
-            lc_load_row<CW>(msb + (size_t)(q == 0 ? sq0 : sq1) * Lp, j0, Lp, vm);
+            lc_load_row<CW>(m_at(p, q == 0 ? sq0 : sq1), j0, Lp, vm);
           }
           lc_slot<CW>(q, j0, vm, dpre, um, dq, uq);
         }
@@ -322,7 +355,7 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
 #pragma unroll
             for (int c = 0; c < CW; ++c) vm[c + 1] = mu[c];
           } else {
-            lc_load_row<CW>(msb + (size_t)si[q] * Lp, j0, Lp, vm);
+            lc_load_row<CW>(m_at(p, si[q]), j0, Lp, vm);
           }
           lc_slot<CW>(q, j0, vm, dpre, um, dq, uq);
         }
@@ -414,8 +447,8 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
         lbj = better ? j : lbj;
         lbv = better ? mrow : lbv;
         const int k = lane * CW + c;
-        st[k] = off ? 0 : cell;
-        st[SEG + k] = mrow;
+        if constexpr (!SCORES) st[k] = off ? 0 : cell;   // SCORES: no direction work
+        st[MPL * SEG + k] = mrow;
         if (!ALL) mu[c] = mrow;
         mprev = mrow;
       }
@@ -434,7 +467,14 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
       const int len = min(SEG, Lp - c0);
       if (len > 0) {
         const int sr = ALL ? i : store;
-        if constexpr (sizeof(PT) == 2) {   // K15 at int16: the cells packed, then m
+        if constexpr (SCORES) {   // K16: m to its output row only
+          int* const dm[1] = {cell(i, c0)};
+          if (vec) {
+            warp_flush<SEG, true>(st, len, 1, dm, lane);
+          } else {
+            warp_flush<SEG, false>(st, len, 1, dm, lane);
+          }
+        } else if constexpr (sizeof(PT) == 2) {   // K15 at int16: the cells packed, then m
           PT* const d = cell(i, c0);
           if (i16 == 8) {
             warp_flush_i16<SEG, 8>(st, len, d, lane);
@@ -506,7 +546,8 @@ __global__ void __launch_bounds__(ONE ? 32 : LC_THREADS, ONE ? LC_ONE_BLOCKS : 1
 template <int CW, bool ALL, bool ONE, int FORM, typename PT>
 int local_launch(const LcArgs& a, int n_store, int i16, cudaStream_t stream) {
   const int threads = 32 * a.warps;
-  const int smem = threads / 32 * 2 * LC_PLANES * 32 * CW * (int)sizeof(int);
+  const int planes = FORM == LC_SCORES ? 1 : LC_PLANES;
+  const int smem = threads / 32 * 2 * planes * 32 * CW * (int)sizeof(int);
   auto kern = poa_local_kernel<CW, ALL, ONE, FORM, PT>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -529,7 +570,8 @@ int local_entry(const LcArgs& a, int n_store, int i16, int cw, int full, cudaStr
   if (a.B < 1 || a.n < 3 || a.Pm < 1 || a.Pm > 4095 || a.Lp < 1 || a.S < 1 || a.warps < 1 ||
       a.warps > LC_MAX_WARPS || 32 * a.warps > LC_THREADS ||
       (!full && a.Lp > 32 * cw * a.warps) ||
-      (full && (cw != 9 || a.warps != LC_MAX_WARPS || a.S != a.n + 1)))
+      (full && (cw != 9 || a.warps != LC_MAX_WARPS ||
+                a.S != (FORM == LC_SCORES ? 1 : a.n + 1))))
     return (int)cudaErrorInvalidValue;
   if (full) return local_launch<9, true, false, FORM, PT>(a, n_store, i16, s);
   switch (cw) {
@@ -587,4 +629,32 @@ extern "C" int rgt_poa_local_v2_fill(
   const cudaStream_t s = (cudaStream_t)stream;
   return i16 ? local_entry<LC_ROWS, short>(a, n_store, i16, cw, full, s)
              : local_entry<LC_ROWS, int>(a, n_store, 0, cw, full, s);
+}
+
+// K17: K13's arguments, n_store = 8 ceil((n - 1) / 8), packed
+// int32[n_store, B, Lp].
+extern "C" int rgt_poa_local_v4_fill(
+    const int* seq, const int* L, const int* table, const int* codes, const int* node_start,
+    const int* pred_idx, const int* srow, const int* store_at, int B, int n, int Pm, int Lp,
+    int n_store, int cw, int warps, int full, int S, int* ms, int* best_val, int* best_i,
+    int* best_j, int* packed, void* stream) {
+  using namespace rgt;
+  if (n_store < n - 1) return (int)cudaErrorInvalidValue;
+  const LcArgs a{seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n, Pm, Lp,
+                 warps, S, ms, best_val, best_i, best_j, packed};
+  return local_entry<LC_ROWS, int>(a, n_store, 0, cw, full, (cudaStream_t)stream);
+}
+
+// K16: K13's arguments, n_store = 8 ceil((n - 1) / 8), the score plane m
+// int32[n_store, B, Lp] as the output (no packed plane).
+extern "C" int rgt_poa_local_scores_fill(
+    const int* seq, const int* L, const int* table, const int* codes, const int* node_start,
+    const int* pred_idx, const int* srow, const int* store_at, int B, int n, int Pm, int Lp,
+    int n_store, int cw, int warps, int full, int S, int* ms, int* best_val, int* best_i,
+    int* best_j, int* m, void* stream) {
+  using namespace rgt;
+  if (n_store < n - 1) return (int)cudaErrorInvalidValue;
+  const LcArgs a{seq, L, table, codes, node_start, pred_idx, srow, store_at, B, n, Pm, Lp,
+                 warps, S, ms, best_val, best_i, best_j, m};
+  return local_entry<LC_SCORES, int>(a, n_store, 0, cw, full, (cudaStream_t)stream);
 }

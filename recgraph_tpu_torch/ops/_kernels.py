@@ -54,11 +54,10 @@ _SIGNATURES = {
     "rgt_poa_local_v1_fill": [_P] * 8 + [_I] * 9 + [_P] * 5 + [_P],
     # K15: as K2, n_store and i16 after Lp
     "rgt_poa_local_v2_fill": [_P] * 8 + [_I] * 10 + [_P] * 5 + [_P],
-    # K17: seq, L, table, codes, node_start, pred_idx, B, n, Pm, Lp,
-    # n_store, m, best_val, best_i, best_j, packed, stream
-    "rgt_poa_local_v4_fill": [_P] * 6 + [_I] * 5 + [_P] * 5 + [_P],
-    # K16: ... Lp, n_store, m, best_val, best_i, best_j, stream
-    "rgt_poa_local_scores_fill": [_P] * 6 + [_I] * 5 + [_P] * 4 + [_P],
+    # K17: as K13
+    "rgt_poa_local_v4_fill": [_P] * 8 + [_I] * 9 + [_P] * 5 + [_P],
+    # K16: as K13, the score plane m in place of packed
+    "rgt_poa_local_scores_fill": [_P] * 8 + [_I] * 9 + [_P] * 5 + [_P],
     # seq, L, bta, table, codes, pred_idx, min_pred, r_values, cand, srow,
     # store_at, n_cand, B, n, Pm, Lp, o, e, cw, warps, full, clamp, S, ms,
     # ys, bsp, mlast, score, last_row, last_col, packed, packed_x,

@@ -1,6 +1,7 @@
 """Mode-1 fill on the GPU: wrapper of the CUDA kernel ``csrc/poa_local.cu``
-(K2; its rows-first forms K13 and K15 are ``cuda_poa_variants.
-fill_local_v1_cuda`` and ``fill_local_v2_cuda``).
+(K2; its rows-first forms K13, K15 and K17 and its scores-only form K16
+are ``cuda_poa_variants.fill_local_v1_cuda``, ``fill_local_v2_cuda``,
+``fill_local_v4_cuda`` and ``fill_local_scores_cuda``).
 
 Replaces ``recgraph_tpu/ops/pallas_poa_v5.py:251 fill_local_v5``.  Its
 plain version is ``poa_engine.fill_local_plain``; both return
@@ -34,13 +35,15 @@ def fill_local_cuda(dg, table, seq, L, layout: Plan | None = None):
 
 
 def fill_layout(kernel, dg, table, seq, L, layout: Plan | None = None, rows: int | None = None,
-                i16: int | None = None):
-    """Launch K2 (``rows`` None: packed int32[B, n, Lp]) or its rows-first
-    form through the C entry of ``kernel``: packed [rows, B, Lp] with rows
-    n-1 .. rows-1 zero, K13 (``i16`` None) or K15 (``i16`` 0: int32, else
-    int16 with that many cells a store, :func:`~cuda_poa_variants.
-    i16_store_cells`).  The four outputs of :func:`fill_local_cuda` in that
-    layout."""
+                i16: int | None = None, scores: bool = False):
+    """Launch K2 (``rows`` None: packed int32[B, n, Lp]) or a rows-first
+    form through the C entry of ``kernel``: [rows, B, Lp] with rows n-1 ..
+    rows-1 zero, K13, K16 (the score plane m in place of packed) and K17
+    (``i16`` None), or K15 (``i16`` 0: int32, else int16 with that many
+    cells a store, :func:`~cuda_poa_variants.i16_store_cells`).  The four
+    outputs of :func:`fill_local_cuda` in that layout.  ``scores`` (K16):
+    every row is read back from the output, so the scratch holds only the
+    full form's G row."""
     dev = seq.device
     B, Lp = seq.shape
     n = dg.n
@@ -50,7 +53,8 @@ def fill_layout(kernel, dg, table, seq, L, layout: Plan | None = None, rows: int
     pl = layout or plan(B, Lp, torch.cuda.get_device_properties(dev).multi_processor_count)
     store_at, srow, S = stored_rows(dg, pl.full)
     _kernels.check_tensors(kernel, dev, store_at=store_at, srow=srow)
-    S += int(pl.full)   # the full form keeps G, the read's gap sums, in one more row
+    # the full form keeps G, the read's gap sums, in one more row
+    S = 1 if scores else S + int(pl.full)
     i32 = dict(dtype=torch.int32, device=dev)
     ms = torch.empty((B, S, Lp), **i32)   # the stored rows' m
     best_val, best_i, best_j = (torch.empty(B, **i32) for _ in range(3))

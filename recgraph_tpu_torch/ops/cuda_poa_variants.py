@@ -1,21 +1,21 @@
 """The superseded TPU generations of the mode-0/1 fills on the GPU.
 
-Wrappers of K13 and K15, the rows-first forms of K2's kernel in
-``csrc/poa_local.cu``, of K14, the v1-layout form of K1's kernel in
-``csrc/poa_global.cu``, and of ``csrc/poa_local_variants.cu`` (K16,
-K17, through the tiled mode-1 body ``poa_local.cuh``).  Each returns what
-its TPU kernel returns, in its layout and element type, written by the
-kernel itself:
+Wrappers of K13, K15 and K17, the rows-first form of K2's kernel in
+``csrc/poa_local.cu``, of K16, its scores-only form, and of K14, the
+v1-layout form of K1's kernel in ``csrc/poa_global.cu``.  Each returns
+what its TPU kernel returns, in its layout and element type, written by
+the kernel itself:
 
 | Kernel | Replaces | Returns |
 | --- | --- | --- |
 | K13 ``fill_local_v1_cuda`` | ``pallas_poa.py:217 fill_local`` | (best_val, best_i, best_j, packed int32[n, B, Lp]); K2's layout plan |
 | K14 ``fill_global_v1_cuda`` | ``pallas_poa.py:537 fill_global`` | (score, last_row, last_col_abs, packed int32[n, B, Lp + 8]); lanes Lp, Lp + 1: band bounds; K1's layout plan |
 | K15 ``fill_local_v2_cuda`` | ``pallas_poa_v2.py:182 fill_local_v2`` | (best_val, best_i, best_j, packed int32 or int16 [8 * ceil(n / 8), B, Lp]); K2's layout plan |
-| K16 ``fill_local_scores_cuda`` | ``tools/pallas_poa_v3.py:137 fill_local_scores`` | (best_val, best_i, best_j, m int32[8 * ceil((n - 1) / 8), B, Lp]) |
-| K17 ``fill_local_v4_cuda`` | ``tools/pallas_poa_v4.py:218 fill_local_v4`` | (best_val, best_i, best_j, packed int32[8 * ceil((n - 1) / 8), B, Lp]) |
+| K16 ``fill_local_scores_cuda`` | ``tools/pallas_poa_v3.py:137 fill_local_scores`` | (best_val, best_i, best_j, m int32[8 * ceil((n - 1) / 8), B, Lp]); no directions; K2's layout plan |
+| K17 ``fill_local_v4_cuda`` | ``tools/pallas_poa_v4.py:218 fill_local_v4`` | (best_val, best_i, best_j, packed int32[8 * ceil((n - 1) / 8), B, Lp]); K2's layout plan |
 
-Rows past n-2 are zero.  Their plain versions are in ``poa_variants``.
+Rows past n-2 are zero (K16, K17: none where (n - 1) % 8 == 0).  Their
+plain versions are in ``poa_variants``.
 The TPU kernels' gates and knobs are not ported: any predecessor span
 (no ``RING``), any batch (no ``B % Bt``), and ``R`` only as it sets the
 row padding.  ``metrics.LAUNCHES[<KERNEL>]`` counts each one's launches.
@@ -38,14 +38,13 @@ class Kernel(NamedTuple):
     REPLACES: str
 
 
-_LOCAL_SRC = "recgraph_tpu_torch/csrc/poa_local_variants.cu"
 LOCAL_V1 = Kernel("poa_local_v1", cuda_poa_local.SOURCE, "recgraph_tpu/ops/pallas_poa.py:217")
 GLOBAL_V1 = Kernel("poa_global_v1", cuda_poa_global.SOURCE,
                    "recgraph_tpu/ops/pallas_poa.py:537")
 LOCAL_V2 = Kernel("poa_local_v2", cuda_poa_local.SOURCE,
                   "recgraph_tpu/ops/pallas_poa_v2.py:182")
-LOCAL_SCORES = Kernel("poa_local_scores", _LOCAL_SRC, "tools/pallas_poa_v3.py:137")
-LOCAL_V4 = Kernel("poa_local_v4", _LOCAL_SRC, "tools/pallas_poa_v4.py:218")
+LOCAL_SCORES = Kernel("poa_local_scores", cuda_poa_local.SOURCE, "tools/pallas_poa_v3.py:137")
+LOCAL_V4 = Kernel("poa_local_v4", cuda_poa_local.SOURCE, "tools/pallas_poa_v4.py:218")
 
 I16_MAX_ROWS = 2048      # pred * 16 + dir fits int16 below this many rows
 I16_MAX_SCORE = 1 << 14  # |scores| the int16 TPU kernel keeps exact
@@ -81,27 +80,6 @@ def i16_store_cells(Lp: int) -> int:
     return 8 if Lp % 8 == 0 else 2 if Lp % 2 == 0 else 1
 
 
-def _local(k: Kernel, dg, table, seq, L, n_store, scores_only=False):
-    """Launch K16 or K17: (best_val, best_i, best_j, plane int32
-    [n_store, B, Lp])."""
-    dev = seq.device
-    B, Lp = seq.shape
-    n = dg.n
-    pidx, _, node_start = _kernels.check_inputs(k.KERNEL, dg, table, seq, L)
-    i32 = dict(dtype=torch.int32, device=dev)
-    best_val, best_i, best_j = (torch.empty(B, **i32) for _ in range(3))
-    plane = torch.empty((n_store, B, Lp), **i32)
-    head = (seq, L, table, dg.codes, node_start, pidx, B, n, dg.max_preds, Lp)
-    shape = (B, n, Lp, Lp)
-    if scores_only:   # m is the output
-        _kernels.launch(k.KERNEL, shape, dev, *head, n_store, plane, best_val, best_i, best_j)
-    else:
-        m = torch.empty((B, n, Lp), **i32)   # score scratch
-        _kernels.launch(k.KERNEL, shape, dev, *head, n_store, m, best_val, best_i, best_j,
-                        plane)
-    return best_val, best_i, best_j, plane
-
-
 def fill_local_v1_cuda(dg, table, seq, L, layout=None):
     """K13: the mode-1 fill with packed int32[n, B, Lp] (``layout``: a
     ``cuda_poa_gap_local.Plan`` to force, else K2's)."""
@@ -117,15 +95,18 @@ def fill_local_v2_cuda(dg, table, seq, L, dtype=torch.int32, layout=None):
                                       rows=rows_v2(dg.n), i16=i16)
 
 
-def fill_local_scores_cuda(dg, table, seq, L):
+def fill_local_scores_cuda(dg, table, seq, L, layout=None):
     """K16: the mode-1 fill's score plane m int32[rows_v34(n), B, Lp]
-    with no directions."""
-    return _local(LOCAL_SCORES, dg, table, seq, L, rows_v34(dg.n), scores_only=True)
+    with no directions (``layout`` as K13's)."""
+    return cuda_poa_local.fill_layout(LOCAL_SCORES.KERNEL, dg, table, seq, L, layout,
+                                      rows=rows_v34(dg.n), scores=True)
 
 
-def fill_local_v4_cuda(dg, table, seq, L):
-    """K17: the mode-1 fill with packed int32[rows_v34(n), B, Lp]."""
-    return _local(LOCAL_V4, dg, table, seq, L, rows_v34(dg.n))
+def fill_local_v4_cuda(dg, table, seq, L, layout=None):
+    """K17: the mode-1 fill with packed int32[rows_v34(n), B, Lp]
+    (``layout`` as K13's)."""
+    return cuda_poa_local.fill_layout(LOCAL_V4.KERNEL, dg, table, seq, L, layout,
+                                      rows=rows_v34(dg.n))
 
 
 def fill_global_v1_cuda(dg, table, seq, L, bta, layout=None):

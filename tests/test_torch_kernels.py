@@ -1150,9 +1150,8 @@ def test_gap67_hardrow_kernel_matches_plain_wide(cuda, tmp_path, name):
 
 
 def _variant_pairs(dg, table, seq, L, bta, layout=None):
-    """(name, kernel, plain, args) for K13-K17, or at a forced ``layout``
-    for the kernels that take one (K13, K14, K15); K15 at both element
-    types where int16 holds the values."""
+    """(name, kernel, plain, args) for K13-K17, at a forced ``layout`` if
+    one is given; K15 at both element types where int16 holds the values."""
     loc = (dg, table, seq, L)
     lay = {} if layout is None else {"layout": layout}
     pairs = [("K13", functools.partial(cv.fill_local_v1_cuda, **lay), pv.fill_local_v1_plain,
@@ -1160,10 +1159,11 @@ def _variant_pairs(dg, table, seq, L, bta, layout=None):
              ("K14", functools.partial(cv.fill_global_v1_cuda, **lay), pv.fill_global_v1_plain,
               (*loc, bta)),
              ("K15 int32", functools.partial(cv.fill_local_v2_cuda, **lay),
-              pv.fill_local_v2_plain, loc)]
-    if layout is None:
-        pairs += [("K16", cv.fill_local_scores_cuda, pv.fill_local_scores_plain, loc),
-                  ("K17", cv.fill_local_v4_cuda, pv.fill_local_v4_plain, loc)]
+              pv.fill_local_v2_plain, loc),
+             ("K16", functools.partial(cv.fill_local_scores_cuda, **lay),
+              pv.fill_local_scores_plain, loc),
+             ("K17", functools.partial(cv.fill_local_v4_cuda, **lay), pv.fill_local_v4_plain,
+              loc)]
     try:
         cv.check_dtype(torch.int16, dg.n, table, seq.shape[1])
         pairs.append(("K15 int16", functools.partial(cv.fill_local_v2_cuda, **lay),
@@ -1175,7 +1175,7 @@ def _variant_pairs(dg, table, seq, L, bta, layout=None):
 
 def _assert_variants_match(g, reads, btas, sm, device, layouts=(None,), width=None):
     """K13-K17 equal their plain versions, and K16's walk equals walk_poa's
-    over K2's packed planes; with ``layouts``, K13-K15 at each forced
+    over K2's packed planes; with ``layouts``, K13-K17 at each forced
     layout (``width``: the read width to cut the encoded reads to)."""
     dg = poa_device_graph(g, device)
     table = torch.as_tensor(sm.table, dtype=torch.int32).to(device)
@@ -1224,7 +1224,7 @@ def test_variant_kernels_match_plain_random(cuda, seed):
     _assert_variants_match(g, reads, btas, sm, cuda)
 
 
-# K13 and K15 (and K14) at forced layouts of their kernels: the read width
+# K13, K15, K16 and K17 (and K14) at forced layouts of their kernels: the read width
 # and the layouts (one warp at 1, 3, 5 and 7 columns a lane, several warps,
 # the full form); widths of 151 and 156 take K15's int16 rows in 2-byte and
 # 4-byte stores (16-byte ones where Lp % 8 == 0)
@@ -1237,7 +1237,7 @@ _VARIANT_LAYOUTS = {
     "lp156": (156, (None, (1, 5, False), (2, 5, False), (16, 9, True))),
 }
 # fuzz.random_gfa(random.Random(seed), n_nodes=60) -> n % 8: K15 zeroes 1,
-# 8 and 2 rows past row n-2
+# 8 and 2 rows past row n-2, K16 and K17 1, 0 and 2
 _VARIANT_SEEDS = {0: 3008, 1: 3027, 7: 3000}
 
 
@@ -1245,9 +1245,10 @@ _VARIANT_SEEDS = {0: 3008, 1: 3027, 7: 3000}
 @pytest.mark.parametrize("rem", sorted(_VARIANT_SEEDS))
 @pytest.mark.parametrize("name", sorted(_VARIANT_LAYOUTS))
 def test_variant_kernels_at_layouts(cuda, name, rem):
-    """K13 and K15 (int32 and int16) bit for bit their plain versions at
-    forced layouts of K2's kernel, on random DAGs whose row count n has
-    n % 8 of 0, 1 and 7, with reads that fill the width."""
+    """K13, K15 (int32 and int16), K16 and K17 bit for bit their plain
+    versions at forced layouts of K2's kernel, on random DAGs whose row
+    count n has n % 8 of 0, 1 and 7 (K16 and K17 store n - 1 rows at 1),
+    with reads that fill the width."""
     width, layouts = _VARIANT_LAYOUTS[name]
     rng = random.Random(_VARIANT_SEEDS[rem])
     gf = fuzz.random_gfa(rng, n_nodes=60, n_paths=4, cover_all=True)

@@ -1,7 +1,9 @@
-"""K13 and K15, the rows-first forms of K2's kernel, on the CPU.
+"""K13, K15 and K17, the rows-first forms of K2's kernel, and K16, its
+scores-only form, on the CPU.
 
-- The wrappers' host side: K13 (``fill_local_v1_cuda``) and K15
-  (``fill_local_v2_cuda``, int32 and int16) launch with K2's layout
+- The wrappers' host side: K13 (``fill_local_v1_cuda``), K15
+  (``fill_local_v2_cuda``, int32 and int16), K17 (``fill_local_v4_cuda``)
+  and K16 (``fill_local_scores_cuda``) launch with K2's layout
   (``cuda_poa_gap_local.plan``) and K2's stored rows (``stored_rows``:
   the far predecessors of start rows) at the smoke's launch shapes and
   at the edges of the layout's forms, and allocate no [B, n, Lp] score
@@ -9,11 +11,13 @@
   the inputs are ``meta`` tensors, so nothing of the planes is
   allocated.
 - The int16 store width K15's flush takes for a row width.
-- ``poa_variants.fill_local_v1`` and ``fill_local_v2`` (the plain
-  versions on CPU tensors) against ``pallas_poa.fill_local`` and
-  ``pallas_poa_v2.fill_local_v2`` in the Pallas interpreter, on seeded
+- ``poa_variants.fill_local_v1``, ``fill_local_v2``,
+  ``fill_local_scores`` and ``fill_local_v4`` (the plain versions on CPU
+  tensors) against ``pallas_poa.fill_local``, ``pallas_poa_v2.
+  fill_local_v2`` and the tools' ``pallas_poa_v3.fill_local_scores`` and
+  ``pallas_poa_v4.fill_local_v4`` in the Pallas interpreter, on seeded
   graphs with n % 8 of 0, 1 and 7 (K15 zeroes 1, 8 and 2 rows past row
-  n-2): equal dtype, shape and values.
+  n-2, K16 and K17 1, 0 and 2): equal dtype, shape and values.
 """
 
 import os
@@ -37,6 +41,7 @@ from recgraph_tpu_torch.ops.cuda_poa_gap_local import Plan
 from recgraph_tpu_torch.ops.encode import PoaDeviceGraph, encode_reads, poa_device_graph
 
 from test_fuzz_random_graphs import random_gfa, random_read
+from test_torch_poa_variants import _tool
 
 torch.set_num_threads(1)
 
@@ -86,6 +91,8 @@ def test_variants_launch_with_k2_layout_and_stored_rows(example_dg, launches, B,
     cuda_poa_local.fill_local_cuda(dg, table, seq, L)
     cv.fill_local_v1_cuda(dg, table, seq, L)
     cv.fill_local_v2_cuda(dg, table, seq, L)
+    cv.fill_local_v4_cuda(dg, table, seq, L)
+    cv.fill_local_scores_cuda(dg, table, seq, L)
     # int16 where its values fit (max |table| 8: below 2,048 columns)
     i16 = 8 * Lp < cv.I16_MAX_SCORE
     if i16:
@@ -93,27 +100,33 @@ def test_variants_launch_with_k2_layout_and_stored_rows(example_dg, launches, B,
     else:
         with pytest.raises(ValueError, match="int16"):
             cv.fill_local_v2_cuda(dg, table, seq, L, torch.int16)
-    (k2, a2), (k13, a13), (k15, a15), *more = launches
-    assert (k2, k13, k15) == ("poa_local", "poa_local_v1", "poa_local_v2")
+    (k2, a2), (k13, a13), (k15, a15), (k17, a17), (k16, a16), *more = launches
+    assert (k2, k13, k15, k17, k16) == ("poa_local", "poa_local_v1", "poa_local_v2",
+                                        "poa_local_v4", "poa_local_scores")
     assert [k for k, _ in more] == ["poa_local_v2"] * i16
     pl = SHAPES[(B, Lp)]
     assert a2[12:16] == (pl.cw, pl.warps, int(pl.full), a2[15])
     store_at, srow, S = cuda_poa_local.stored_rows(dg, pl.full)
     assert a2[15] == S + int(pl.full)
-    rows = cv.rows_v2(n)
-    forms = [(a13, (n,), (n, torch.int32)), (a15, (rows, 0), (rows, torch.int32))]
-    forms += [(args, (rows, cv.i16_store_cells(Lp)), (rows, torch.int16)) for _, args in more]
-    for args, form, packed in forms:
+    rows, r34 = cv.rows_v2(n), cv.rows_v34(n)
+    # K16's last output is its score plane m: it passes no packed plane, and
+    # reads every row back from it, so its scratch is the full form's G row
+    forms = [(a13, (n,), (n, torch.int32), a2[15]), (a15, (rows, 0), (rows, torch.int32), a2[15]),
+             (a17, (r34,), (r34, torch.int32), a2[15]), (a16, (r34,), (r34, torch.int32), 1)]
+    forms += [(args, (rows, cv.i16_store_cells(Lp)), (rows, torch.int16), a2[15])
+              for _, args in more]
+    for args, form, packed, S_ in forms:
         k = len(form)
         # K2's inputs, stored rows, layout and scratch rows, then its outputs
         assert all(x is y for x, y in zip(args[:8], a2[:8]))
         assert args[6] is srow and args[7] is store_at
         assert args[8:12] == a2[8:12] == (B, n, dg.max_preds, Lp)
         assert args[12:12 + k] == form
-        assert args[12 + k:16 + k] == a2[12:16]
+        assert args[12 + k:16 + k] == (*a2[12:15], S_)
         ms, out = args[16 + k], args[17 + k:]
-        assert ms.shape == a2[16].shape == (B, a2[15], Lp) and ms.dtype == torch.int32
-        assert [t.shape for t in out[:3]] == [(B,)] * 3
+        assert a2[16].shape == (B, a2[15], Lp)
+        assert ms.shape == (B, S_, Lp) and ms.dtype == torch.int32
+        assert len(out) == 4 and [t.shape for t in out[:3]] == [(B,)] * 3
         assert out[3].shape == (packed[0], B, Lp) and out[3].dtype == packed[1]
         assert not any(t.shape == (B, n, Lp) for t in args if isinstance(t, torch.Tensor))
 
@@ -138,6 +151,8 @@ GRAPH_SEEDS = {0: 16, 1: 6, 7: 1}
 
 @pytest.mark.parametrize("rem", sorted(GRAPH_SEEDS))
 def test_local_v1_v2_match_jax(rem):
+    """K13, K15 (int32, int16), K16 and K17's plain versions against the
+    JAX kernels in the interpreter."""
     rng = random.Random(GRAPH_SEEDS[rem])
     gf = random_gfa(rng, n_nodes=8, cover_all=True)
     reads = [random_read(rng, gf) for _ in range(8)]
@@ -160,12 +175,19 @@ def test_local_v1_v2_match_jax(rem):
         cases.append((poa_variants.fill_local_v2(dg, table, seq, L, getattr(torch, dt)),
                       pallas_poa_v2.fill_local_v2(dg_j, table_j, seq_j, L_j, Bt=8, R=8,
                                                   interpret=True, dtype=getattr(jnp, dt))))
+    cases.append((poa_variants.fill_local_scores(dg, table, seq, L),
+                  _tool("pallas_poa_v3").fill_local_scores(dg_j, table_j, seq_j, L_j, Bt=8, R=8,
+                                                           interpret=True)))
+    cases.append((poa_variants.fill_local_v4(dg, table, seq, L),
+                  _tool("pallas_poa_v4").fill_local_v4(dg_j, table_j, seq_j, L_j, Bt=8,
+                                                       interpret=True)))
     n = dg.n
+    rows = [n, cv.rows_v2(n), cv.rows_v2(n), cv.rows_v34(n), cv.rows_v34(n)]
     for k, (got, ref) in enumerate(cases):
         assert len(got) == len(ref) == 4
         for name, a, b in zip(("best_val", "best_i", "best_j", "packed"), got, ref):
             a, b = a.numpy(), np.asarray(b)
             assert a.dtype == b.dtype and a.shape == b.shape, (k, name, a.dtype, b.dtype)
             np.testing.assert_array_equal(a, b, err_msg=f"{k} {name}")
-        assert got[3].shape[0] == (n if k == 0 else cv.rows_v2(n))
+        assert got[3].shape[0] == rows[k]
         assert not got[3][n - 1:].any() and not got[3][0].any()
