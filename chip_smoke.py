@@ -15,6 +15,25 @@ Phases, in order; any failure raises and the script exits nonzero:
             tests/goldens/mode6_full.txt and mode7_full.txt; a reads
             file with no reads in modes 0, 4, 6 and 8 (one per mode
             family) writes no line, with and without -o;
+3b. surface the run level on the card: the four align_* functions of
+            the library API (default device) on 8 example reads, each
+            call one launch of its mode's kernel (K1, K2, K4, K5) at
+            one read, records equal to device="cpu" (a CPU worker);
+            RECGRAPH_RESUME=1 in modes 0 and 4 on example/ from the
+            first 20 lines of an -o run, equal to the CPU resume of the
+            same file (mode 0 also to mode0.gaf); two CLI processes
+            (--num-processes 2) sharing the card in modes 0 and 8,
+            merged file equal to the one-process -o run (mode0.gaf;
+            mode8.gaf without read 0's line), and their recgraph-timing
+            lines; the data-parallel split (align.pipeline.run over
+            cuda:0 twice) in modes 1 and 8 equal to the goldens; and
+            RECGRAPH_PROFILE on stretch mode 0 (3,047 reads, one K1
+            chunk) and mode 6 (232 reads, one K11 chunk) through the
+            CLI in a process of their own, which prints no
+            data-parallel line (a CLI run never splits): the trace's
+            size, its top kernels, and the device's busy and idle
+            shares (the union of kernel intervals over the window),
+            failing if the trace has no kernel event;
 4. stretch  the CLI on the 10,000-read stretch corpus
             (tools/make_synthetic.make(dir, 700, 10000, 42)) for -m 0..5:
             line count (modes 4/5 drop read 0's line with -o, as the
@@ -125,12 +144,18 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 In phase 6, the exactness cases of a kernel that differ only in a knob
 of the kernel (a forced layout, the blocks a read) share one plain
-result.
+result.  The exactness cases of K3-K7, K10 and K11 (beside their
+main-path shapes, which stay on the card) are held to the plain version
+run on a CPU worker:
+the digests of every output, dtypes and shapes included, must be
+equal.
 
-From phase 4 on, the CPU runs that the card's output is held against
-(the samples, K11's CPU checks and the scalar oracle on a long read)
-are queued for three worker processes, which start after the last
-timed CLI run and work beside phase 6; phase 6 ends by collecting them.
+From phase 3b on, the CPU runs that the card's output is held against
+(the API records, the resumed files, the samples, the exactness cases
+of K3-K7, K10 and K11, K11's CPU checks and the scalar oracle on a long read) and the
+reading of the profiled runs' traces are queued for six single-thread
+worker processes, which start after the last timed CLI run and work
+beside phase 6; phase 6 ends by collecting them.
 
 Every launch counter is set to 0 just before each CLI run of phases 4-5
 and read just after; the run fails if a kernel of its path was not
@@ -892,44 +917,84 @@ def hard_case(x, c):
 KERNEL_KNOBS = ("layout", "cluster", "extra")
 
 
-def check_case(spec, label, g, reads, c, timed=False, refs=None):
-    """One kernel call against its plain version on the same inputs
-    (case ``c``); returns (max_abs_err, timing or None).  ``refs``: the
-    kernel's plain results so far by graph, reads and case fields but
-    the kernel's knobs (``KERNEL_KNOBS``), reused where only those
-    differ."""
+def case_inputs(kind, g, reads, c, device):
+    """Case ``c``'s inputs on ``device``: the graph's encoding for the
+    kernel's graph kind, the scoring table, the encoded reads and the
+    case's fields."""
     from types import SimpleNamespace
 
     import torch
 
     from recgraph_tpu_torch.ops.encode import (
-        encode_read_aux, encode_reads, group_table, path_device_graph, poa_device_graph,
-        rev_device_graph,
+        encode_read_aux, encode_reads, path_device_graph, poa_device_graph, rev_device_graph,
     )
+    from recgraph_tpu_torch.ops.pathwise_gap_engine import gap_tables
     from recgraph_tpu_torch.scoring import ScoreMatrix
 
-    from recgraph_tpu_torch.ops.pathwise_gap_engine import gap_tables
-
-    kind = spec["graph"]
     if kind == "poa":
-        dg = poa_device_graph(g, "cuda")
+        dg = poa_device_graph(g, device)
     elif kind == "rev":
-        dg = rev_device_graph(reverse_of(g), "cuda")
+        dg = rev_device_graph(reverse_of(g), device)
     else:
-        dg = path_device_graph(g, "cuda")
+        dg = path_device_graph(g, device)
     table = torch.as_tensor(ScoreMatrix.create(c["matrix"], 2, -4).table,
-                            dtype=torch.int32).cuda()
-    seq, L = encode_reads(reads, pad_to=c["pad_to"], device="cuda")
+                            dtype=torch.int32).to(device)
+    seq, L = encode_reads(reads, pad_to=c["pad_to"], device=device)
     if c["width"] is not None:
         seq = seq[:, : c["width"]].contiguous()
-    bta = encode_read_aux([int(1 + 0.01 * len(s)) for s in reads], "cuda")
+    bta = encode_read_aux([int(1 + 0.01 * len(s)) for s in reads], device)
     x = SimpleNamespace(g=g, dg=dg, table=table, seq=seq, L=L, bta=bta, W=c["W"],
                         o=c["oe"][0], e=c["oe"][1], semi=c["semi"], dtype=c["dtype"],
-                        cluster=c["cluster"])
+                        cluster=c.get("cluster"))
+    if kind in ("gap", "hard"):
+        x.tabs = gap_tables(g, device)
+    return x
+
+
+def outputs_digest(tensors):
+    """SHA-256 of outputs' dtypes, shapes and bytes: equal digests are
+    equal outputs."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(f"{t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# the graph kinds whose exactness cases run their plain version on a CPU
+# worker (not the K1/K2 family, whose plain fills the checks share)
+WORKER_PLAIN = ("poa", "path", "gap")
+
+
+def cpu_plain_digest(spec_id, g, reads, c):
+    """A kernel's plain version on case ``c`` on the CPU (a worker job):
+    the digest of its outputs."""
+    t0 = time.perf_counter()
+    spec = next(sp for sp in kernel_specs() if sp["id"] == spec_id)
+    ref = spec["plain"](*spec["args"](case_inputs(spec["graph"], g, reads, c, "cpu")))
+    return outputs_digest(ref if isinstance(ref, tuple) else (ref,)), time.perf_counter() - t0
+
+
+def check_case(spec, label, g, reads, c, timed=False, refs=None):
+    """One kernel call against its plain version on the same inputs
+    (case ``c``); returns (max_abs_err, timing or None).  ``refs``: the
+    kernel's plain results so far by graph, reads and case fields but
+    the kernel's knobs (``KERNEL_KNOBS``), reused where only those
+    differ.  The exactness cases of the kernels of ``WORKER_PLAIN``'s
+    graph kinds (K3-K7, K10, K11) hold the kernel to its plain version
+    run on a CPU worker (deferred): their plain fills, seconds each, then
+    run beside the card's checks."""
+    import dataclasses
+
+    import torch
+
+    from recgraph_tpu_torch.ops.encode import group_table
+
+    kind = spec["graph"]
+    x = case_inputs(kind, g, reads, c, "cuda")
+    dg, seq = x.dg, x.seq
     if kind in ("split", "guided", "bound"):
         split_case(g, reads, c, x)
-    if kind in ("gap", "hard"):
-        x.tabs = gap_tables(g, "cuda")
     if kind == "hard":
         hard_case(x, c)
     args = spec["args"](x)
@@ -941,9 +1006,13 @@ def check_case(spec, label, g, reads, c, timed=False, refs=None):
     torch.cuda.synchronize()
     B, Lp = seq.shape
     plain = c["plain"]
+    if plain is True and not timed and kind in WORKER_PLAIN and not spec.get("shared"):
+        plain = "worker"
     key = (id(g), tuple(reads), tuple(sorted((k, v) for k, v in c.items()
                                              if k not in KERNEL_KNOBS)))
-    if refs is not None and plain is True and key in refs:
+    if plain == "worker":
+        ref, plain_ms = got, None
+    elif refs is not None and plain is True and key in refs:
         ref, plain_ms = refs[key], None
     else:
         t0 = time.perf_counter()
@@ -990,6 +1059,20 @@ def check_case(spec, label, g, reads, c, timed=False, refs=None):
               "read 0's planes equal to the scalar oracle's on every cell", check,
               cpu_gap_oracle, g.__dict__["_smoke_gfa"], reads[0], mode)
         note += " (read 0 goes to the scalar oracle on a CPU worker)"
+    elif plain == "worker":
+        digest = outputs_digest(got)
+
+        def check(ref_digest):
+            if ref_digest != digest:
+                raise AssertionError(f"{spec['id']} {label} {c['matrix']} {how} W={x.W}: "
+                                     "outputs differ from the plain version")
+
+        # the graph without the device encodings cached on it
+        bare = type(g)(**{f.name: getattr(g, f.name) for f in dataclasses.fields(g)})
+        defer(f"{spec['id']} {label} {how} B={B} Lp={Lp}",
+              "outputs equal to the plain version on a CPU worker", check, cpu_plain_digest,
+              spec["id"], bare, list(reads), {k: v for k, v in c.items() if k not in KERNEL_KNOBS})
+        note += " (the plain version on a CPU worker)"
     elif plain == "cpu":   # K11: the leading reads against the plain fill on a CPU worker
         k = min(B, K11_CPU_READS)
         digest = planes_digest([t[:, :k] for t in got])
@@ -1040,6 +1123,7 @@ def check_kernels(shapes, corpora, cases):
     shapes, the most launched first."""
     results = {}
     for spec in kernel_specs():
+        t0 = time.perf_counter()
         if not spec.get("shared"):
             _plain_cache.clear()   # the mode-0/1 family is done
         kernel, err, timed = spec["mod"].KERNEL, 0, []
@@ -1080,6 +1164,7 @@ def check_kernels(shapes, corpora, cases):
                                       c, refs=refs)[0])
         del refs
         results[spec["id"]] = dict(spec=spec, err=err, timed=timed)
+        log(f"{spec['id']} checks: {time.perf_counter() - t0:.1f} s")
     return results
 
 
@@ -1150,7 +1235,7 @@ def cli_run(tag, mode, reads_fa, graph_gfa, out, expect, launches, shapes):
 # plain versions cost seconds to minutes a read on the CPU.  Jobs are
 # queued from phase 4 on and the workers start only after the last timed
 # CLI run, so that no timed run shares the host with them.
-CPU_WORKERS, CPU_THREADS = 3, 2
+CPU_WORKERS, CPU_THREADS = 6, 1
 K11_CPU_READS = 8   # leading reads of a chunk held against the CPU plain fill
 _pool = None
 _jobs: dict = {}       # (function, repr of its arguments) -> job
@@ -1329,6 +1414,348 @@ def check_sample_gap(tag, mode, lines, seqs, sample, graph_gfa):
           mode, [seqs[i] for i in sample], graph_gfa)
 
 
+# 3b. the run-level surface on the card: the library API, resume,
+# multi-process runs, the data-parallel split and profiled runs
+API_READS = 8               # example reads through each align_* function
+RESUME_LINES = 20           # lines of the -o file a resumed run starts from
+PROFILE_READS = {0: 3047, 6: 232}   # stretch reads profiled: one K1 chunk, one K11 chunk
+PROFILE_KERNELS = {0: "poa_global_warp_kernel", 6: "gap67_fill_kernel"}
+API_KERNELS = {"align_global_no_gap": "poa_global", "align_local_no_gap": "poa_local",
+               "align_global_gap": "poa_gap_global", "align_local_gap": "poa_gap_local"}
+
+
+def cpu_api_records(reads_fa, graph_gfa, n):
+    """The four align_* functions on the first ``n`` reads with
+    ``device="cpu"`` (a worker job): {function: [GafRecord]}."""
+    from recgraph_tpu_torch import api
+    from recgraph_tpu_torch.io import gfa
+
+    t0 = time.perf_counter()
+    seqs, names = read_set(reads_fa, n)
+    g = gfa.parse_gfa(graph_gfa)
+    recs = {fn: [getattr(api, fn)(s[1:], g, nm, device="cpu") for s, nm in zip(seqs, names)]
+            for fn in API_KERNELS}
+    return recs, time.perf_counter() - t0
+
+
+def resumed_run(kw, partial, out):
+    """The CLI's run with RECGRAPH_RESUME=1 into ``out``, which first
+    holds ``partial``: (the file's text, stderr)."""
+    from recgraph_tpu_torch.align.pipeline import Options, run
+
+    with open(out, "w") as fh:
+        fh.write(partial)
+    err = io.StringIO()
+    os.environ["RECGRAPH_RESUME"] = "1"
+    try:
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+            run(Options(**kw, out_file=out))
+    finally:
+        del os.environ["RECGRAPH_RESUME"]
+    with open(out) as fh:
+        return fh.read(), err.getvalue()
+
+
+def cpu_resume(kw, partial, out):
+    """:func:`resumed_run` on the CPU (a worker job)."""
+    t0 = time.perf_counter()
+    text, _ = resumed_run(dict(kw, device="cpu"), partial, out)
+    return text, time.perf_counter() - t0
+
+
+def spawn_cli(args, nproc=2):
+    """Start ``nproc`` processes of the port's CLI on the card, joined as
+    one multi-process run (:func:`wait_cli` collects them)."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        addr = f"localhost:{s.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=ROOT, RECGRAPH_METRICS="1")
+    return [subprocess.Popen(
+        [sys.executable, "-m", "recgraph_tpu_torch", "--device", "cuda", *args,
+         "--num-processes", str(nproc), "--process-id", str(k), "--coordinator", addr],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(nproc)]
+
+
+def wait_cli(procs, timeout=300):
+    """The stderr of each process :func:`spawn_cli` started, or raise
+    (every process is stopped either way)."""
+    errs = []
+    try:
+        for k, p in enumerate(procs):
+            _, se = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"process {k} of {p.args} exited {p.returncode}:\n"
+                                     f"{se[-3000:]}")
+            errs.append(se)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return errs
+
+
+def warm_worker():
+    """Bring a fresh process to the card: CUDA and the kernel library."""
+    import torch
+
+    from recgraph_tpu_torch.ops import _kernels
+
+    sys.path.insert(0, ROOT)
+    _kernels.load()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+
+
+def profiled_cli(args, prof_dir):
+    """The port's CLI on the card with RECGRAPH_PROFILE=``prof_dir`` (a
+    process of its own, so that no later timed run shares the profiler's
+    state): (wall seconds, stdout lines, stderr, the trace's path)."""
+    import torch
+
+    from recgraph_tpu_torch import cli, metrics
+
+    sys.path.insert(0, ROOT)
+    os.environ["RECGRAPH_PROFILE"] = prof_dir
+    buf, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        cli.main([*args, "--device", "cuda"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, len(buf.getvalue().splitlines()), err.getvalue(),
+            metrics.trace_path(prof_dir))
+
+
+def trace_shares(path, kernel):
+    """The device's busy and idle shares in a trace: the union of its
+    CUDA kernel intervals over the profiled window (the first to the last
+    event of any track), the kernels by time, and each phase's spans
+    (``phase:<name>``, inclusive of nested phases) with the kernel time
+    inside them.  Fails if the trace has no kernel event or none of
+    ``kernel``."""
+    import bisect
+
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                  for e in events if e.get("cat") == "kernel")
+    if not kern:
+        raise AssertionError(f"{path}: no CUDA kernel event (no CUPTI trace of the card)")
+    if not any(kernel in name for _, _, name in kern):
+        raise AssertionError(f"{path}: no {kernel} event")
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    merged = []
+    for a, b, _ in kern:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [a for a, _ in merged]
+    before = [0.0]
+    for a, b in merged:
+        before.append(before[-1] + b - a)
+
+    def busy_until(t):
+        k = bisect.bisect_right(starts, t)
+        if k == 0:
+            return 0.0
+        a, b = merged[k - 1]
+        return before[k - 1] + min(t, b) - a
+
+    by_kernel = Counter()
+    count = Counter()
+    for a, b, name in kern:
+        short = name.split("(")[0].split("<")[0].replace("void ", "")
+        by_kernel[short] += b - a
+        count[short] += 1
+    phases = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("phase:"):
+            a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+            span, busy = phases.get(e["name"][6:], (0.0, 0.0))
+            phases[e["name"][6:]] = (span + b - a, busy + busy_until(b) - busy_until(a))
+    busy = before[-1]
+    return dict(
+        window_s=(t1 - t0) / 1e6, busy_s=busy / 1e6, busy_share=busy / (t1 - t0),
+        idle_share=1 - busy / (t1 - t0), kernels=len(kern),
+        top=[(k, round(v / 1e3, 3), count[k]) for k, v in by_kernel.most_common(6)],
+        phases={k: (round(s / 1e6, 3), round(b / 1e6, 3))
+                for k, (s, b) in sorted(phases.items(), key=lambda kv: -kv[1][0])})
+
+
+def cpu_trace_shares(path, kernel):
+    """:func:`trace_shares` (a worker job); the trace is deleted after."""
+    t0 = time.perf_counter()
+    try:
+        return trace_shares(path, kernel), time.perf_counter() - t0
+    finally:
+        os.remove(path)
+
+
+def golden_text(name):
+    with open(os.path.join(ROOT, "tests", "goldens", f"{name}.gaf")) as fh:
+        return fh.read()
+
+
+def surface(example, stretch, workdir):
+    """Phase 3b: each check is exact equality and raises on a difference.
+    The profiled runs' process reaches the card while the other checks
+    run."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        warm = pool.submit(warm_worker)
+        surface_checks(example, workdir)
+        warm.result()
+        profile_runs(pool, stretch, workdir)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def surface_checks(example, workdir):
+    """The API, resume, multi-process runs and the data-parallel split."""
+    import torch
+
+    from recgraph_tpu_torch import api, metrics
+    from recgraph_tpu_torch.align.pipeline import Options, run
+    from recgraph_tpu_torch.io import gfa
+
+    # the library API: one read a call, on the card by default
+    seqs, names = read_set(example[0], API_READS)
+    graph = gfa.parse_gfa(example[1])
+    got = {}
+    for fn, kern in API_KERNELS.items():
+        got[fn] = []
+        for s, nm in zip(seqs, names):
+            metrics.reset_phases()
+            got[fn].append(getattr(api, fn)(s[1:], graph, nm))
+            shapes = [k for k in metrics.SHAPES if k[0] == kern]
+            if not metrics.LAUNCHES.get(kern) or any(k[1] != 1 for k in shapes):
+                raise AssertionError(f"api {fn}: {kern} not launched on one read "
+                                     f"({dict(metrics.LAUNCHES)}, {shapes})")
+    log(f"api: 4 functions x {API_READS} reads on the card, each call one launch of its "
+        f"kernel at one read ({sorted(API_KERNELS.values())})")
+
+    def check_api(res):
+        for fn in API_KERNELS:
+            for i, (a, b) in enumerate(zip(got[fn], res[fn])):
+                if a != b or a.to_string() != b.to_string():
+                    raise AssertionError(f"api {fn}: read {i} differs from device='cpu':\n"
+                                         f"{a.to_string()}\n{b.to_string()}")
+
+    defer("api", f"4 x {API_READS} records equal to device='cpu'", check_api, cpu_api_records,
+          example[0], example[1], API_READS)
+
+    # resume: cut an -o run after RESUME_LINES lines, resume on the card
+    for mode, kern in ((0, "poa_global"), (4, "pathwise")):
+        kw = dict(sequence_path=example[0], graph_path=example[1], alignment_mode=mode)
+        out = os.path.join(workdir, f"resume_mode{mode}.gaf")
+        if os.path.exists(out):
+            os.remove(out)
+        run_capture(**kw, device="cuda", out_file=out)
+        with open(out) as fh:
+            partial = "".join(fh.readlines()[:RESUME_LINES])
+        metrics.reset_phases()
+        text, err = resumed_run(dict(kw, device="cuda"), partial, out)
+        if f"resuming at read {RESUME_LINES}/52" not in err or not metrics.LAUNCHES.get(kern):
+            raise AssertionError(f"resume mode {mode}: {err[-500:]} {dict(metrics.LAUNCHES)}")
+        if mode == 0 and text != golden_text("mode0"):
+            raise AssertionError("resume mode 0: the resumed file differs from mode0.gaf")
+        log(f"resume mode {mode}: resumed at read {RESUME_LINES}/52, "
+            f"{len(text.splitlines())} lines" + (", byte-equal to mode0.gaf" if mode == 0 else ""))
+
+        def check_resume(res, text=text, mode=mode):
+            if res != text:
+                raise AssertionError(f"resume mode {mode}: the card's file differs from the "
+                                     "CPU resume")
+
+        defer(f"resume mode {mode}", "resumed file byte-equal to the CPU resume", check_resume,
+              cpu_resume, kw, partial, os.path.join(workdir, f"resume_mode{mode}_cpu.gaf"))
+
+    # multi-process: two CLI processes share the card (the runs of modes 0
+    # and 8 at once); the merged -o file is the one-process run's, which
+    # the goldens fix: mode0.gaf, and mode8.gaf without read 0's line (-o
+    # truncates at number 1)
+    t0 = time.perf_counter()
+    runs = {mode: spawn_cli(["-m", str(mode), *example, "-o",
+                             os.path.join(workdir, f"mp_mode{mode}.gaf")]) for mode in (0, 8)}
+    errs = {mode: wait_cli(procs) for mode, procs in runs.items()}
+    wall = time.perf_counter() - t0
+    for mode in (0, 8):
+        want = golden_text(f"mode{mode}")
+        if mode == 8:
+            want = want[want.index("\n") + 1:]
+        with open(os.path.join(workdir, f"mp_mode{mode}.gaf")) as fh:
+            if fh.read() != want:
+                raise AssertionError(f"multi-process mode {mode}: merged file differs from the "
+                                     "one-process -o run (the golden)")
+        log(f"multi-process mode {mode}: 2 processes on {torch.cuda.get_device_name(0)}, merged "
+            f"file byte-equal to the one-process -o run (mode{mode}.gaf"
+            + (" without read 0's line)" if mode == 8 else ")"))
+        for se in errs[mode]:
+            for ln in se.splitlines():
+                if ln.startswith("recgraph-timing:") or ln.startswith("metrics:"):
+                    log(f"  mode {mode} {ln}")
+    log(f"multi-process: modes 0 and 8, four processes at once, {wall:.1f} s wall")
+
+    # the data-parallel split over two devices (the one card twice)
+    for mode, kern in ((1, "poa_local"), (8, "pathwise")):
+        metrics.reset_phases()
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            run(Options(*example, alignment_mode=mode, device="cuda"), ["cuda:0", "cuda:0"])
+        if "data-parallel: sharding reads over 2 local devices" not in err.getvalue():
+            raise AssertionError(f"data-parallel mode {mode}: no split ({err.getvalue()[-300:]})")
+        if buf.getvalue() != golden_text(f"mode{mode}") or metrics.LAUNCHES.get(kern, 0) < 2:
+            raise AssertionError(f"data-parallel mode {mode}: output differs from the golden or "
+                                 f"launches {dict(metrics.LAUNCHES)}")
+        log(f"data-parallel mode {mode}: split over cuda:0 twice, byte-equal to mode{mode}.gaf; "
+            f"launches {dict(metrics.LAUNCHES)}")
+
+
+def profile_runs(pool, stretch, workdir):
+    """RECGRAPH_PROFILE on stretch modes 0 and 6 in ``pool``'s process;
+    the traces are read on a CPU worker (deferred)."""
+    seqs, names = read_set(stretch[0])
+    for mode, n in PROFILE_READS.items():
+        reads = os.path.join(workdir, f"profile_mode{mode}.fa")
+        write_fasta(reads, seqs[:n], names[:n])
+        prof = os.path.join(workdir, f"profile_mode{mode}")
+        if os.path.isdir(prof):
+            for f in os.listdir(prof):
+                os.remove(os.path.join(prof, f))
+        out = os.path.join(workdir, f"profile_mode{mode}.gaf")
+        wall, n_out, err, path = pool.submit(
+            profiled_cli, ["-m", str(mode), reads, stretch[1], "-o", out], prof).result()
+        if "data-parallel:" in err:
+            raise AssertionError(f"a CLI run split its reads: {err[-500:]}")
+        if mode != 6:
+            with open(out) as fh:
+                n_out = len(fh.read().splitlines())
+        if n_out != (2 * n if mode == 6 else n):
+            raise AssertionError(f"profile mode {mode}: {n_out} lines for {n} reads")
+        size = os.path.getsize(path) / 2**20
+        log(f"profile stretch mode {mode}, {n} reads: wall {wall:.3f} s with the trace written, "
+            f"trace {size:.1f} MiB")
+
+        def report(sh, mode=mode, n=n):
+            log(f"profile stretch mode {mode}, {n} reads: {sh['kernels']} kernel events; window "
+                f"{sh['window_s']:.3f} s, device busy {sh['busy_s']:.3f} s = "
+                f"{100 * sh['busy_share']:.2f} %, idle {100 * sh['idle_share']:.2f} %")
+            log(f"  top kernels (name, ms, launches): {sh['top']}")
+            log(f"  phases (span s, kernel s inside): {sh['phases']}")
+
+        defer(f"profile mode {mode}", f"trace read, {PROFILE_KERNELS[mode]} in it", report,
+              cpu_trace_shares, path, PROFILE_KERNELS[mode])
+
 def main() -> int:
     import torch
 
@@ -1401,6 +1828,12 @@ def main() -> int:
         if got or (os.path.exists(out) and os.path.getsize(out)):
             raise AssertionError(f"mode {mode} wrote lines for a reads file with no reads")
     log("no reads: modes 0, 4, 6 and 8 wrote no line, with and without -o")
+
+    # 3b. the run-level surface: API, resume, multi-process runs, the
+    #     data-parallel split, profiled runs
+    t0 = time.perf_counter()
+    surface(example, stretch, workdir)
+    log(f"surface: {time.perf_counter() - t0:.1f} s")
 
     # 4. stretch corpus end to end through the CLI (the CPU checks from
     #    here on are queued for worker processes that start with phase 6;

@@ -16,13 +16,21 @@ Layer map (module names mirror the JAX package):
                 recombination fills and the split search (plain torch
                 + CUDA kernels), the on-device traceback walks and the
                 chunk pipelines.
-- ``align``     per-mode orchestration and GAF emission.
-- ``metrics``   phase timers and kernel launch counters.
+- ``align``     per-mode orchestration, GAF emission and the run level
+                (resume, profile, multi-process runs, the read split).
+- ``parallel``  multi-process runs (``distributed``) and the
+                data-parallel read split over named devices (``mesh``).
+- ``api``       the library API (modes 0-3, one read a call).
+- ``metrics``   phase timers, kernel launch counters, the profiler trace.
 - ``cli``       the RecGraph-compatible command line.
 
 The port imports nothing of ``recgraph_tpu``; only its tests import both.
 Ported: all ten modes (POA 0-3 and pathwise 4/5 at every read length,
-pathwise affine-gap 6/7, recombination 8/9) on one GPU.
+pathwise affine-gap 6/7, recombination 8/9), the library API,
+RECGRAPH_PROFILE, RECGRAPH_RESUME, multi-process runs and the
+data-parallel read split (byte-equal, over the devices a caller names;
+no run splits by itself).  Not yet: the opt-in mode-8/9 window pair
+(RECGRAPH_REC_WINDOW, RECGRAPH_SPLIT_FULL).
 """
 
 __version__ = "0.1.0"

@@ -22,16 +22,26 @@ main.rs:160-164); 1-based read numbers for the GAF writer in modes 0-3
 and 0-based ones in modes 4/5 and 8/9 (main.rs:260,268), so that with
 ``-o`` the writer's truncate-at-number-1 rule drops read 0's line, as
 the reference does.  Modes 4/5 and 8/9 have no amb-strand retry.
+
+The run level (``run``/``_run``/``_run_host``, recgraph_tpu's
+pipeline.py:202-379): ``RECGRAPH_PROFILE=<dir>`` (a torch.profiler
+trace), ``RECGRAPH_RESUME=1`` (skip the reads already in ``-o``),
+multi-process runs (``parallel.distributed``: part files merged by
+process 0) and the data-parallel read split over devices the caller
+names (``parallel.mesh``: the reads split at the engine call).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 import sys
 import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .. import _backend, native
 from ..graph.pathgraph import PathGraph
@@ -43,21 +53,18 @@ from ..oracle import pathwise as oracle_pathwise
 from ..oracle import pathwise_gap as oracle_pathwise_gap
 from ..oracle import poa as oracle_poa
 from ..oracle import recombination as oracle_recombination
-from ..metrics import phase, phase_summary
+from ..metrics import phase, phase_summary, trace
 from ..graph.pathgraph import nodes_displacement_matrix
 from ..ops import pathwise_engine, pathwise_gap_engine, poa_engine, recombination_engine
 from ..ops.poa_engine import WalkState
+from ..parallel import distributed, mesh as pmesh
 from ..scoring import ScoreMatrix
 
 PORTED_MODES = tuple(range(10))
 ENGINES = ("torch", "oracle")
 _BAND_WARNING = "Band length probably too short, maybe try with larger b and f"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """What the port does not run yet: multi-process runs (ROADMAP
-    queue 1, multi-process runs)."""
-    return NotImplementedError(f"{what}: not yet ported (ROADMAP queue 1, multi-process runs)")
+STDOUT = "standard output"
+RESUMABLE_MODES = (0, 1, 2, 3, 4, 5, 8, 9)
 
 
 @dataclass
@@ -79,6 +86,10 @@ class Options:
     extra_f: float = 0.01
     engine: str = "torch"
     device: str = "cuda"
+    # scale-out: multi-process runs
+    num_processes: int = 1
+    process_id: int | None = None
+    coordinator: str | None = None
 
     def __post_init__(self):
         if self.engine not in ENGINES:
@@ -162,21 +173,112 @@ def _emit_poa(mode, st, seq, name, amb_mode, g):
     return emit(st, seq, name, amb_mode, g.handle_pos)
 
 
-def run(opts: Options) -> None:
+def run(opts: Options, devices=None) -> None:
     """Top-level orchestration (reference main.rs:25-329), modes 0-9.
 
-    RECGRAPH_METRICS=1 prints reads/s, cells/s and the phase breakdown
-    to stderr.  Diagnostics go to stderr so the GAF stream on stdout
-    stays clean.
+    ``devices``: the devices to split the reads over (``parallel.mesh.
+    split_map``; byte-equal output, not a speed-up); None runs on
+    ``Options.device`` alone.
+
+    RECGRAPH_METRICS=1 prints reads/s, cells/s, the phase breakdown and
+    a ``recgraph-timing`` line to stderr; RECGRAPH_PROFILE=<dir> wraps
+    the run in a torch.profiler trace (``metrics.trace``).  Diagnostics
+    go to stderr so the GAF stream on stdout stays clean.
     """
     if opts.alignment_mode not in PORTED_MODES:
         raise ValueError(f"mode {opts.alignment_mode}: modes are 0..9")
+    profile_dir = os.environ.get("RECGRAPH_PROFILE")
+    if not profile_dir:
+        _run(opts, devices)
+        return
+    cuda = opts.engine == "torch" and any(
+        torch.device(d).type == "cuda" for d in devices or [opts.device])
+    with trace(profile_dir, cuda):
+        _run(opts, devices)
+
+
+def _data_parallel(opts: Options, devices):
+    """The devices the engines split the reads over (one: no split)."""
+    if devices is None:
+        return [opts.device]
+    devices = [_backend.resolve_device(d) for d in devices]
+    if len(devices) > 1:
+        print(f"data-parallel: sharding reads over {len(devices)} local devices",
+              file=sys.stderr)
+    return devices
+
+
+def _run(opts: Options, devices) -> None:
     t0 = time.time()
+    if opts.num_processes > 1 and opts.out_file == STDOUT:
+        # fail fast: joining blocks until every process has joined, so a
+        # doomed run must stop before it joins
+        raise SystemExit("multi-process runs require -o <file>")
+    pid, nproc = distributed.initialize(opts.coordinator, opts.num_processes,
+                                        opts.process_id)
+    try:
+        devices = _data_parallel(opts, devices)
+        t_setup = time.time() - t0
+        _run_host(opts, pid, nproc, t0, devices)
+        t_align = time.time() - t0 - t_setup
+        t_gather = 0.0
+        if nproc > 1:
+            # the result gather, the only data that crosses processes:
+            # a barrier, then process 0 concatenates the parts
+            tg0 = time.time()
+            distributed.barrier()
+            if pid == 0:
+                distributed.merge_host_outputs(opts.out_file, nproc)
+            t_gather = time.time() - tg0
+    finally:
+        if nproc > 1:
+            distributed.shutdown()
+    if os.environ.get("RECGRAPH_METRICS"):
+        # setup = joining the group and choosing devices; align = this
+        # process's reads; gather = the end barrier and the merge (the
+        # barrier charges the processes' skew to the earlier one)
+        print(f"recgraph-timing: pid={pid}/{nproc} setup={t_setup:.3f} "
+              f"align={t_align:.3f} gather={t_gather:.3f}", file=sys.stderr)
+
+
+def _run_host(opts: Options, pid: int, nproc: int, t0: float, devices) -> None:
+    """This process's reads (all of them in a one-process run): the
+    multi-process part file, resume, then the mode's engine."""
     with phase("parse"):
         sequences, names = fasta.get_sequences(opts.sequence_path)
+    host_offset = 0
+    if nproc > 1:
+        sl = distributed.host_read_slice(len(sequences), pid, nproc)
+        host_offset = sl.start
+        sequences, names = sequences[sl], names[sl]
+        opts = dataclasses.replace(opts, out_file=f"{opts.out_file}.part{pid}")
+        # the writer's truncate-at-number-1 rule never fires for a part
+        # whose first read is past read 0, so stale parts are removed
+        # here, unless resuming into them
+        if not os.environ.get("RECGRAPH_RESUME") and os.path.exists(opts.out_file):
+            os.remove(opts.out_file)
+        if not sequences:
+            open(opts.out_file, "w").close()
+            return
+
+    # resume: with RECGRAPH_RESUME=1 and an -o file, skip as many reads
+    # as the file has non-blank lines and append
+    resume_skip = 0
+    if (os.environ.get("RECGRAPH_RESUME") and opts.out_file != STDOUT
+            and os.path.exists(opts.out_file) and opts.alignment_mode in RESUMABLE_MODES):
+        with open(opts.out_file) as fh:
+            resume_skip = sum(1 for ln in fh if ln.strip())
+        resume_skip = min(resume_skip, len(sequences))
+        if resume_skip:
+            print(f"resuming at read {resume_skip}/{len(sequences)}", file=sys.stderr)
+            sequences, names = sequences[resume_skip:], names[resume_skip:]
+            if not sequences:
+                print("Done in 0.", file=sys.stderr)
+                return
+    with phase("parse"):
         parsed = gfa.parse_gfa(opts.graph_path)
     sm = ScoreMatrix.create(opts.matrix, opts.match_score, -opts.mismatch_score)
-    writer = GafWriter(opts.out_file)
+    writer = GafWriter(opts.out_file, number_offset=resume_skip + host_offset)
     mode = opts.alignment_mode
     if not sequences:
         # zero reads: no line in any mode, as the reference's loop over the
@@ -184,11 +286,18 @@ def run(opts: Options) -> None:
         # (ops/pathwise_engine.py:223 _align_lp), which the port does not copy
         pass
     elif mode in (4, 5):
-        _run_pathwise(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer)
+        _run_pathwise(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer,
+                      devices)
     elif mode in (6, 7):
-        _run_pathwise_gap(opts, mode, sequences, PathGraph.from_gfa(parsed, is_reversed=False), sm)
+        # the lines go to stdout (main.rs:277); a multi-process run writes
+        # them to its part file so that process 0's merge sees them
+        sink = open(opts.out_file, "w") if nproc > 1 else contextlib.nullcontext(sys.stdout)
+        with sink as fh:
+            _run_pathwise_gap(opts, mode, sequences, PathGraph.from_gfa(parsed, is_reversed=False),
+                              sm, fh, host_offset, devices)
     elif mode in (8, 9):
-        _run_recombination(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer)
+        _run_recombination(opts, mode, sequences, names, PathGraph.from_gfa(parsed), sm, writer,
+                           devices)
     else:
         g = PoaGraph.from_gfa(parsed, amb_mode=False)
         g_rev = None
@@ -200,7 +309,7 @@ def run(opts: Options) -> None:
             return g_rev
 
         if opts.engine == "torch":
-            _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph)
+            _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph, devices)
         else:
             _run_poa_oracle(opts, mode, sequences, names, g, sm, writer, rev_graph)
 
@@ -263,7 +372,7 @@ def _run_poa_oracle(opts, mode, sequences, names, g, sm, writer, rev_graph):
         writer.write(record.to_string(), i + 1)
 
 
-def _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph):
+def _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph, devices):
     """Batched device path: fill + walk on the device, native emission.
 
     Ambiguous-strand retries run as one reverse-graph batch over just
@@ -271,7 +380,13 @@ def _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph):
     """
     o, e = -opts.gap_open, -opts.gap_extension
     btas = [_bta(opts, s) for s in sequences]
-    states = poa_engine.run_batch_walks(mode, sequences, g, sm, o, e, btas, opts.device)
+
+    def walks(graph, seqs, bt):
+        return pmesh.split_map(
+            lambda s, b, d: poa_engine.run_batch_walks(mode, s, graph, sm, o, e, b, d),
+            devices, seqs, bt)
+
+    states = walks(g, sequences, btas)
     for st in states if mode in (0, 2) else ():
         if not st.band_check_ok:
             print(_BAND_WARNING, file=sys.stderr)
@@ -284,9 +399,7 @@ def _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph):
             rg = rev_graph()
             rseqs = [fasta.rev_and_compl(sequences[i]) for i in retry]
             rbtas = [btas[i] for i in retry]
-            rstates = poa_engine.run_batch_walks(
-                mode, rseqs, rg, sm, o, e, rbtas, opts.device
-            )
+            rstates = walks(rg, rseqs, rbtas)
             with phase("emit"):
                 for k, i in enumerate(retry):
                     if _keep_reverse(mode, states[i].score, rstates[k].score):
@@ -297,12 +410,13 @@ def _run_poa_batched(opts, mode, sequences, names, g, sm, writer, rev_graph):
             writer.write(rec.to_string(), i + 1)
 
 
-def _run_pathwise(opts, mode, sequences, names, g, sm, writer):
+def _run_pathwise(opts, mode, sequences, names, g, sm, writer, devices):
     """Modes 4/5 (the pathwise branch of recgraph_tpu's _run_host,
     pipeline.py:413-430): the torch engine's fills and walks, or the
     scalar oracle per read; 0-based read numbers."""
     if opts.engine == "torch":
-        records = pathwise_engine.run_batch_walks(mode, sequences, g, sm, opts.device)
+        records = pmesh.split_map(
+            lambda s, d: pathwise_engine.run_batch_walks(mode, s, g, sm, d), devices, sequences)
     else:
         exec_ = oracle_pathwise.exec_global if mode == 4 else oracle_pathwise.exec_semiglobal
         records = [exec_(s, g, sm) for s in sequences]
@@ -312,7 +426,7 @@ def _run_pathwise(opts, mode, sequences, names, g, sm, writer):
             writer.write(rec.to_string(), i)
 
 
-def _run_recombination(opts, mode, sequences, names, g, sm, writer):
+def _run_recombination(opts, mode, sequences, names, g, sm, writer, devices):
     """Modes 8/9 (the recombination branch of recgraph_tpu's _run_host,
     pipeline.py:472-508): the torch engine's fills, split search and
     walks, or the scalar oracle per read, which alone needs the dense
@@ -320,8 +434,9 @@ def _run_recombination(opts, mode, sequences, names, g, sm, writer):
     rg = g.reverse()
     args = (sm, opts.base_rec_cost, opts.multi_rec_cost)
     if opts.engine == "torch":
-        records = recombination_engine.run_batch_walks(
-            mode, sequences, g, rg, *args, opts.rec_band_width, opts.device)
+        records = pmesh.split_map(
+            lambda s, d: recombination_engine.run_batch_walks(
+                mode, s, g, rg, *args, opts.rec_band_width, d), devices, sequences)
     else:
         dms = nodes_displacement_matrix(g, rg)
         records = [oracle_recombination.exec_mode(mode, s, g, rg, *args, dms,
@@ -333,18 +448,21 @@ def _run_recombination(opts, mode, sequences, names, g, sm, writer):
             writer.write(rec.to_string(), i)
 
 
-def _run_pathwise_gap(opts, mode, sequences, g, sm):
+def _run_pathwise_gap(opts, mode, sequences, g, sm, fh, host_offset, devices):
     """Modes 6/7 (the branch of recgraph_tpu's _run_host,
     pipeline.py:431-471): the torch engine's fills and walks, or the
     scalar oracle per read.  Graphs the reference itself rejects (a
     predecessor block sharing no path with its node) go to the oracle,
     which raises the same way; nothing else does.  The lines go to
-    stdout whatever ``-o`` says (main.rs:277), read numbers 0-based."""
+    ``fh`` (stdout whatever ``-o`` says, main.rs:277; a multi-process
+    run's part file), read numbers 0-based from ``host_offset``."""
     o, e = -opts.gap_open, -opts.gap_extension
     results = None
     if opts.engine == "torch":
         try:
-            results = pathwise_gap_engine.run_batch(mode, sequences, g, sm, o, e, opts.device)
+            results = pmesh.split_map(
+                lambda s, d: pathwise_gap_engine.run_batch(mode, s, g, sm, o, e, d),
+                devices, sequences)
         except pathwise_gap_engine.RejectedGraph as exc:
             print(f"mode {mode}: device path unavailable ({exc}); using oracle", file=sys.stderr)
     exec_ = (oracle_pathwise_gap.exec_gap_global if mode == 6
@@ -352,6 +470,6 @@ def _run_pathwise_gap(opts, mode, sequences, g, sm):
     lines = []
     for i, seq in enumerate(sequences):
         best_path, cigar = results[i] if results is not None else exec_(seq, g, sm, o, e)
-        lines.append(f"{cigar}\nBest path sequence {i}: {best_path}\n")
+        lines.append(f"{cigar}\nBest path sequence {i + host_offset}: {best_path}\n")
     with phase("write"):
-        sys.stdout.write("".join(lines))
+        fh.write("".join(lines))

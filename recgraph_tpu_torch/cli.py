@@ -7,15 +7,17 @@ Flag-compatible with the reference CLI (reference: src/args_parser.rs):
 with -m/-M/-X/-t/-O/-E/-r/-R/-B/-s/-b/-f/-o, plus ``--engine
 {torch,oracle}`` and ``--device {cuda,cpu}``.  The device defaults to
 ``cuda``; without CUDA the run raises rather than moving to the CPU.
-Multi-process runs raise NotImplementedError until their slice is
-ported.
+``--num-processes/--process-id/--coordinator`` make a multi-process run
+(``parallel.distributed``; it needs ``-o``).  ``--no-data-parallel`` is
+accepted for recgraph_tpu's flag set: a CLI run never splits its reads
+over the host's GPUs (``parallel.mesh``).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .align.pipeline import Options, not_ported, run
+from .align.pipeline import Options, run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,27 +81,39 @@ def build_parser() -> argparse.ArgumentParser:
         default="cuda",
         help="device of the torch engine; cpu runs the kernels' plain versions",
     )
-    # scale-out flags of recgraph_tpu: multi-process runs are not yet
-    # ported, and one GPU has no reads to shard
+    # scale-out: multi-process data parallelism
     p.add_argument(
         "--num-processes",
         dest="num_processes",
         type=int,
         default=1,
-        help="number of host processes in a multi-host run (not yet ported)",
+        help="number of host processes in a multi-process run",
     )
-    p.add_argument("--process-id", dest="process_id", type=int, default=None)
-    p.add_argument("--coordinator", dest="coordinator", default=None)
     p.add_argument(
-        "--no-data-parallel", dest="no_data_parallel", action="store_true"
+        "--process-id",
+        dest="process_id",
+        type=int,
+        default=None,
+        help="this process's index in [0, num-processes)",
+    )
+    p.add_argument(
+        "--coordinator",
+        dest="coordinator",
+        default=None,
+        help="address of process 0's rendezvous (host:port)",
+    )
+    p.add_argument(
+        "--no-data-parallel",
+        dest="no_data_parallel",
+        action="store_true",
+        help="accepted for recgraph_tpu's flag set; runs never split their reads "
+        "over the host's GPUs",
     )
     return p
 
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.num_processes > 1:
-        raise not_ported("--num-processes > 1")
     opts = Options(
         sequence_path=args.sequence_path,
         graph_path=args.graph_path,
@@ -118,6 +132,9 @@ def main(argv: list[str] | None = None) -> None:
         extra_f=args.extra_f,
         engine=args.engine,
         device=args.device,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
+        coordinator=args.coordinator,
     )
     run(opts)
 

@@ -18,12 +18,24 @@ from __future__ import annotations
 from .. import native
 
 
+def _prepare(line: str) -> str:
+    return line.upper().replace("-", "N")
+
+
 def get_sequences(path: str) -> tuple[list[str], list[str]]:
     """Read a FASTA file -> ([ '$' + read, ... ], [name, ...]).
 
     Mirrors sequences.rs:5-45 including the '$' sentinel and '-'->'N'.
     """
     return native.read_fasta(path)
+
+
+def build_align_string(read: str) -> str:
+    """Prepare a raw read for alignment: '$' sentinel + normalisation.
+
+    Mirrors sequences.rs:48-61 (library API entry point).
+    """
+    return "$" + _prepare(read)
 
 
 _COMPL = {"A": "T", "C": "G", "G": "C", "T": "A", "N": "N"}

@@ -23,11 +23,16 @@ event on the device adds to ``device_counter(name, device)``, so its
 launch never waits for it; ``flush_device_counters()`` adds those
 counts into ``EVENTS`` (one wait for the device per name and device)
 and is called where the counts are read.
+
+:func:`trace` (``RECGRAPH_PROFILE=<dir>``) records a ``torch.profiler``
+trace of a run; while it records, each phase is also a
+``record_function`` range named ``phase:<name>`` in the trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import Counter
 
@@ -37,6 +42,7 @@ EVENTS: Counter = Counter()           # name -> count
 _DEVICE_EVENTS: dict = {}             # (name, device) -> int64[1] tensor not yet flushed
 PHASES: Counter = Counter()           # name -> exclusive seconds
 _stack: list[list] = []               # [name, child_seconds] frames
+_tracing = False                      # a trace() is recording
 
 
 def count_launch(kernel: str, shape: tuple) -> None:
@@ -68,6 +74,12 @@ def flush_device_counters() -> None:
 def phase(name: str):
     """Accumulate EXCLUSIVE wall time under ``name``: a nested phase
     charges its own name and is subtracted from the enclosing one."""
+    span = None
+    if _tracing:
+        import torch
+
+        span = torch.profiler.record_function(f"phase:{name}")
+        span.__enter__()
     t0 = time.perf_counter()
     _stack.append([name, 0.0])
     try:
@@ -78,6 +90,35 @@ def phase(name: str):
         PHASES[name] += dt - child
         if _stack:
             _stack[-1][1] += dt
+        if span is not None:
+            span.__exit__(None, None, None)
+
+
+def trace_path(out_dir: str) -> str:
+    """The trace file :func:`trace` writes for this process."""
+    return os.path.join(out_dir, f"recgraph_torch.{os.getpid()}.pt.trace.json")
+
+
+@contextlib.contextmanager
+def trace(out_dir: str, cuda: bool):
+    """Record the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity with ``cuda``) and write a Chrome trace to
+    :func:`trace_path` (``out_dir`` is created), also when the block
+    raises."""
+    global _tracing
+    import torch.profiler as tp
+
+    acts = [tp.ProfilerActivity.CPU] + ([tp.ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(out_dir, exist_ok=True)
+    prof = tp.profile(activities=acts)
+    prof.start()
+    _tracing = True
+    try:
+        yield
+    finally:
+        _tracing = False
+        prof.stop()
+        prof.export_chrome_trace(trace_path(out_dir))
 
 
 def reset_phases() -> None:

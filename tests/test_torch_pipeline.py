@@ -121,11 +121,11 @@ def test_oracle_engine(example_paths, tmp_path, mode):
 
 
 def test_unported_paths_raise(example_paths):
-    # every mode is ported; multi-process runs are not
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main([*example_paths, "--device", "cpu", "--num-processes", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, multi-process runs"):
-        cli.main(["-m", "6", *example_paths, "--device", "cpu", "--num-processes", "2"])
+    # every mode and multi-process runs are ported; a multi-process run
+    # without -o stops before it joins, with recgraph_tpu's message
+    for mode in ("0", "6"):
+        with pytest.raises(SystemExit, match="multi-process runs require -o <file>"):
+            cli.main(["-m", mode, *example_paths, "--device", "cpu", "--num-processes", "2"])
     with pytest.raises(ValueError, match="modes are 0..9"):
         run(Options(*example_paths, alignment_mode=10, device="cpu"))
     with pytest.raises(ValueError, match="engine"):
