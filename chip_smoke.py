@@ -27,8 +27,8 @@ Phases, in order; any failure raises and the script exits nonzero:
             mode8.gaf without read 0's line), and their recgraph-timing
             lines; the data-parallel split (align.pipeline.run over
             cuda:0 twice) in modes 1 and 8 equal to the goldens; and
-            RECGRAPH_PROFILE on stretch mode 0 (3,047 reads, one K1
-            chunk) and mode 6 (232 reads, one K11 chunk) through the
+            RECGRAPH_PROFILE on stretch mode 0 (1,024 reads, one K1
+            launch) and mode 6 (48 reads, one K11 launch) through the
             CLI in a process of their own, which prints no
             data-parallel line (a CLI run never splits): the trace's
             size, its top kernels, and the device's busy and idle
@@ -58,7 +58,22 @@ Phases, in order; any failure raises and the script exits nonzero:
             (full width; read 0's two lines byte-equal to the scalar
             oracle's, exec_gap_global / exec_gap_semiglobal, on a CPU
             worker: the port's plain fill would take many minutes there);
-6. kernels  K1-K8, K10-K17 and S1 against their plain torch versions on the card,
+            then -m 8 on the same 32 reads with RECGRAPH_REC_WINDOW=1 (the
+            windowed pair: K10 forward, S2 reverse, from W 256): the rungs,
+            the rescore refusals and full-width reruns
+            (metrics.EVENTS["rec_win_rescore"], ["rec_win_fullwidth"]),
+            how many lines differ from the full-width file (logged: the
+            opt-in may emit a lower-scoring alignment), and 2 sampled reads
+            byte-equal to the port's CPU run with the variable set, each
+            read run alone as the card's ladder ran it; phase 6 checks
+            each kernel of its ladder once a width, at the rung with the
+            most reads, where no earlier run launched it at that width;
+5b. split   RECGRAPH_SPLIT_FULL=1 (the full column scan in torch ops in
+    full    place of S1): example/ in modes 8 and 9 byte-equal to
+            tests/goldens/mode8.gaf and mode9.gaf, and the stretch corpus's
+            first 348 reads (one mode-8 fill chunk) byte-equal to the same
+            reads of phase 4's default run;
+6. kernels  K1-K8, K10-K17, S1 and S2 against their plain torch versions on the card,
             all outputs exactly equal, at every launch shape of phases 4-5
             (reads, rows, Lp, stored width[, paths], as metrics.SHAPES
             recorded them; the leading reads of that corpus), with kernel
@@ -101,6 +116,11 @@ Phases, in order; any failure raises and the script exits nonzero:
             with ub + 0.5 >= the read's final threshold was evaluated)
             checked on the columns it evaluated; its bound entry against
             _column_ub at its launch shapes and on the example graph;
+            S2 (Awr, wsr, Rr) at K10's cases (W 32 and 1,024 on 8 long
+            reads, W 32 and 34 on the example graph, HOXD70 at W 64, W 32
+            and 256 beside a read shorter than W, W 1,024 on the
+            41,000-bp read: the device-scratch form) and at W 8 on the
+            fragment graphs whose reverse graphs have delta-leak rows;
             K11 (all three
             planes, every cell) in modes 6 and 7 on the example graph, a
             1,100-bp read (two column tiles; mode 6), HOXD70 with o = -200 (past
@@ -144,7 +164,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 In phase 6, the exactness cases of a kernel that differ only in a knob
 of the kernel (a forced layout, the blocks a read) share one plain
-result.  The exactness cases of K3-K7, K10 and K11 (beside their
+result.  The exactness cases of K3-K7, K10, K11 and S2 (beside their
 main-path shapes, which stay on the card) are held to the plain version
 run on a CPU worker:
 the digests of every output, dtypes and shapes included, must be
@@ -509,10 +529,11 @@ def kernel_specs():
     from recgraph_tpu_torch import fuzz, kernel_ab
     from recgraph_tpu_torch.ops import (
         cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_rev,
-        cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local,
-        cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_poa_variants as cv,
-        cuda_split_summary, pathwise_engine, pathwise_gap_engine, pathwise_window, poa_engine,
-        poa_gap_engine, poa_variants as pv, recombination_engine, traceback_engine as tb,
+        cuda_pathwise_rev_win, cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win,
+        cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win, cuda_poa_local,
+        cuda_poa_variants as cv, cuda_split_summary, pathwise_engine, pathwise_gap_engine,
+        pathwise_window, poa_engine, poa_gap_engine, poa_variants as pv, recombination_engine,
+        recombination_window, traceback_engine as tb,
     )
 
     def int16_refused(x, got):
@@ -545,6 +566,9 @@ def kernel_specs():
         end = pathwise_engine._end_meta(x.g, "cuda")
         score = pathwise_engine._endings_global_dev(fc, *end)[2]
         return f" W={x.W} guard fails {int((score <= got[2]).sum())}/{x.seq.shape[0]}"
+
+    def exit_account(x, got):
+        return f" W={x.W} Rr set {int((got[2] > poa_engine.NEG).sum())}/{x.seq.shape[0]}"
 
     def s1_entry(kernel, replaces):   # an entry of S1 as the result line lists it
         return SimpleNamespace(KERNEL=kernel, SOURCE=cuda_split_summary.SOURCE, REPLACES=replaces)
@@ -700,6 +724,17 @@ def kernel_specs():
                                 # per-read scratch in device memory
                                 case("long8s", W=32), case("long8s", W=256),
                                 case("example", W=34), case("long41", W=1024)]),
+        # S2, the reverse form of K10's kernel: K10's cases and the
+        # delta-leak reverse graphs (their reads pad to 8 or 16 columns)
+        dict(id="S2", mod=cuda_pathwise_rev_win,
+             kern=cuda_pathwise_rev_win.fill_pathwise_rev_win_cuda,
+             plain=recombination_window.fill_pathwise_rev_win_plain, graph="rev", ops=(30, 0),
+             args=lambda x: (x.dg, x.table, x.seq, x.L, x.W), note=exit_account,
+             worker_plain=True,
+             cases=[case("long8", W=32), case("long8", W=1024), case("example", W=32),
+                    case("example", "HOXD70", W=64), case("long8s", W=32),
+                    case("long8s", W=256), case("example", W=34), case("long41", W=1024),
+                    *(case(f"leak{s}", W=8) for s in fuzz.LEAK_SEEDS)]),
         dict(id="K8", mod=cuda_pathwise_rev,
              kern=cuda_pathwise_rev.fill_pathwise_rev_cuda,
              plain=recombination_engine.fill_pathwise_rev_plain, graph="rev", ops=(16, 0),
@@ -1006,7 +1041,8 @@ def check_case(spec, label, g, reads, c, timed=False, refs=None):
     torch.cuda.synchronize()
     B, Lp = seq.shape
     plain = c["plain"]
-    if plain is True and not timed and kind in WORKER_PLAIN and not spec.get("shared"):
+    if plain is True and not timed and (kind in WORKER_PLAIN or spec.get("worker_plain")) \
+            and not spec.get("shared"):
         plain = "worker"
     key = (id(g), tuple(reads), tuple(sorted((k, v) for k, v in c.items()
                                              if k not in KERNEL_KNOBS)))
@@ -1305,6 +1341,37 @@ def cpu_run_lines(kw):
     return lines, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def env(**values):
+    """The environment variables set to ``values`` inside the block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cpu_rec_window_lines(fastas, graph_gfa):
+    """Mode 8 with RECGRAPH_REC_WINDOW=1 on the CPU (a worker job), each
+    one-read file alone from an empty window hint, as every read of the
+    card's run started its ladder at W 256: the output lines."""
+    from recgraph_tpu_torch.ops import pathwise_engine
+
+    t0 = time.perf_counter()
+    lines = []
+    with env(RECGRAPH_REC_WINDOW="1"):
+        for fa in fastas:
+            pathwise_engine._pw_w_hint.clear()
+            lines += run_capture(sequence_path=fa, graph_path=graph_gfa, alignment_mode=8,
+                                 device="cpu").splitlines()
+    return lines, time.perf_counter() - t0
+
+
 def cpu_gap_results(mode, reads, graph_gfa):
     """Modes 6/7 on the CPU in one fill chunk (a worker job): [(best
     path, line)] per read."""
@@ -1418,7 +1485,10 @@ def check_sample_gap(tag, mode, lines, seqs, sample, graph_gfa):
 # multi-process runs, the data-parallel split and profiled runs
 API_READS = 8               # example reads through each align_* function
 RESUME_LINES = 20           # lines of the -o file a resumed run starts from
-PROFILE_READS = {0: 3047, 6: 232}   # stretch reads profiled: one K1 chunk, one K11 chunk
+# stretch reads profiled, a part of one K1 chunk (3,047 reads) and of one
+# K11 chunk (232 reads): cut from whole chunks to keep the script inside
+# its time limit (the traced mode-6 run took 65-91 s at 232 reads)
+PROFILE_READS = {0: 1024, 6: 48}
 PROFILE_KERNELS = {0: "poa_global_warp_kernel", 6: "gap67_fill_kernel"}
 API_KERNELS = {"align_global_no_gap": "poa_global", "align_local_no_gap": "poa_local",
                "align_global_gap": "poa_gap_global", "align_local_gap": "poa_gap_local"}
@@ -1767,9 +1837,10 @@ def main() -> int:
     from recgraph_tpu_torch import _backend, kernel_ab, metrics
     from recgraph_tpu_torch.graph.pathgraph import PathGraph
     from recgraph_tpu_torch.ops import (
-        _kernels, cuda_gap67_fill, cuda_pathwise, cuda_pathwise_rev, cuda_pathwise_win,
-        cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local, cuda_poa_global,
-        cuda_poa_global_win, cuda_poa_local, cuda_split_summary, pathwise_engine, poa_engine,
+        _kernels, cuda_gap67_fill, cuda_pathwise, cuda_pathwise_rev, cuda_pathwise_rev_win,
+        cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_poa_gap_local,
+        cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_split_summary,
+        pathwise_engine, poa_engine,
     )
 
     # 1. report
@@ -1957,6 +2028,76 @@ def main() -> int:
         log(f"long mode {mode}: {kern[:2]} ran at {sorted(widths)} columns")
         check_sample(f"long mode {mode}", mode, lines, lseqs, lnames,
                      list(range(1, n_reads, step)), long[1], workdir)
+
+    # the opt-in windowed mode-8 pair on the same reads, every ladder from W 256
+    pathwise_engine._pw_w_hint.clear()
+    win = [cuda_pathwise_win.KERNEL, cuda_pathwise_rev_win.KERNEL, *rec[2:]]
+    wshapes = Counter()
+    with env(RECGRAPH_REC_WINDOW="1"):
+        lines = cli_run("long mode 8 windowed", 8, fw_rec, long[1],
+                        os.path.join(workdir, "long_mode8_win.gaf"), win, launches, wshapes)
+    if len(lines) != LONG["rec_reads"] - 1:
+        raise AssertionError(f"long mode 8 windowed: {len(lines)} lines")
+    # phase 6 checks each kernel of the ladder once a width, at its most
+    # reads, where no earlier run launched it at that width: the rungs'
+    # other launches differ only in their reads, one block a read
+    widest, seen = {}, {(k[0], *k[2:]) for k in shapes}
+    for k, v in wshapes.items():
+        rest = (k[0], *k[2:])
+        kb, vb = widest.get(rest, (k, 0))
+        widest[rest] = (k if k[1] >= kb[1] else kb, vb + v)
+    shapes.update(dict(w for rest, w in widest.items() if rest not in seen))
+    with open(os.path.join(workdir, "long_mode8.gaf")) as fh:
+        full8 = fh.read().splitlines()
+    rungs = sorted((k[0], k[1], k[4]) for k in wshapes if k[0] in win[:2])
+    log(f"long mode 8 windowed: the ladder ran (kernel, reads, W) {rungs}; rescore refusals "
+        f"{metrics.EVENTS['rec_win_rescore']}, full-width reruns "
+        f"{metrics.EVENTS['rec_win_fullwidth']}; {sum(a != b for a, b in zip(lines, full8))} "
+        f"of {len(lines)} lines differ from the full-width run")
+    sample = [1, LONG["rec_reads"] // 2]
+    fastas = []
+    for i in sample:
+        fastas.append(os.path.join(workdir, f"sample_long8_win_{i}.fa"))
+        write_fasta(fastas[-1], [lseqs[i]], [lnames[i]])
+
+    def check_win(ref, got=[lines[i - 1] for i in sample]):
+        if got != ref:
+            raise AssertionError(f"long mode 8 windowed: sample {sample} differs from the CPU "
+                                 f"run:\n{got}\n{ref}")
+
+    defer("long mode 8 windowed", f"reads {sample} byte-equal to the CPU run with "
+          "RECGRAPH_REC_WINDOW=1", check_win, cpu_rec_window_lines, fastas, long[1])
+
+    # 5b. RECGRAPH_SPLIT_FULL: the full column scan in place of S1
+    t0 = time.perf_counter()
+    with env(RECGRAPH_SPLIT_FULL="1"):
+        for mode in (8, 9):
+            metrics.reset_phases()
+            got = run_capture(sequence_path=example[0], graph_path=example[1], device="cuda",
+                              alignment_mode=mode)
+            if got != golden_text(f"mode{mode}") or metrics.EVENTS["split_rounds"]:
+                raise AssertionError(f"RECGRAPH_SPLIT_FULL mode {mode}: output differs from the "
+                                     f"golden or S1 ran ({dict(metrics.EVENTS)})")
+            log(f"RECGRAPH_SPLIT_FULL example mode {mode}: byte-equal to mode{mode}.gaf "
+                f"(split {metrics.PHASES['split']:.3f} s)")
+        head = os.path.join(workdir, "stretch_head348.fa")
+        write_fasta(head, seqs[:348], names[:348])
+        out = os.path.join(workdir, "stretch_head348_mode8_full.gaf")
+        if os.path.exists(out):
+            os.remove(out)
+        metrics.reset_phases()
+        t1 = time.perf_counter()
+        run_capture(sequence_path=head, graph_path=stretch[1], device="cuda", alignment_mode=8,
+                    out_file=out)
+        with open(out) as fh, open(os.path.join(workdir, "stretch_mode8.gaf")) as fd:
+            got, ref = fh.read().splitlines(), fd.read().splitlines()[:347]
+        if got != ref or metrics.EVENTS["split_rounds"]:
+            raise AssertionError("RECGRAPH_SPLIT_FULL stretch mode 8: the first 348 reads differ "
+                                 "from the default run's or S1 ran")
+        log(f"RECGRAPH_SPLIT_FULL stretch mode 8, 348 reads (one chunk): {len(got)} lines "
+            f"byte-equal to the default run's in {time.perf_counter() - t1:.3f} s (split "
+            f"{metrics.PHASES['split']:.3f} s)")
+    log(f"split full: {time.perf_counter() - t0:.1f} s")
 
     fw_gap = os.path.join(workdir, "long_gap.fa")
     write_fasta(fw_gap, lseqs[: LONG["gap_reads"]], lnames[: LONG["gap_reads"]])

@@ -84,6 +84,10 @@ _SIGNATURES = {
     "rgt_pathwise_win_fill": [_P] * 5 + [_I] * 9 + [_P, _LL] + [_P] * 3 + [_P],
     # threads, smem, smem_form -> blocks an SM holds, or -error
     "rgt_pathwise_win_per_sm": [_I] * 3,
+    # S2: seq, L, table, meta, B, n, P, Lp, Gd, W, threads, smem,
+    # smem_form, scratch, stride, Awr, wsr, Rr, stream
+    "rgt_pathwise_rev_win_fill": [_P] * 4 + [_I] * 9 + [_P, _LL] + [_P] * 3 + [_P],
+    "rgt_pathwise_rev_win_per_sm": [_I] * 3,
     # seq, L, table, codes, grep, gpred, pslot, qsrc, gcount, B, n, P, Lp,
     # Gd, mode8, cluster, threads, smem, smem_form, cw, scratch, stride, A,
     # stream

@@ -52,19 +52,21 @@ def scratch_bytes(Lp: int, n: int, W: int, Gd: int, P: int) -> int:
     return (4 * ints + _a4(Lp) + 15) // 16 * 16
 
 
-def plan(B: int, P: int, n: int, Lp: int, W: int, Gd: int, sms: int, per_sm) -> Plan:
+def plan(B: int, P: int, n: int, Lp: int, W: int, Gd: int, sms: int, per_sm,
+         meta: int | None = None) -> Plan:
     """The launch of K10 for B reads of width Lp, windows of W columns, on
     a graph of n rows, P paths and Gd groups a row, on a card of ``sms``
     SMs, one block a read; ``per_sm(threads, smem, smem_form)`` gives the
     blocks an SM holds at once.
 
     - The scratch in shared memory while it fits in ``SMEM_MAX`` beside
-      the row tables (``cuda_pathwise.meta_bytes``), else in device memory.
+      the row tables (``meta`` bytes, by default K10's
+      ``cuda_pathwise.meta_bytes``), else in device memory.
     - Threads: one per four columns of the lanes (one per column when W
       is not a multiple of 4), 64 to ``MAX_THREADS``; a warp fewer while
       an SM could not hold its share of the blocks at once.
     """
-    small = cuda_pathwise.meta_bytes(Gd, P)
+    small = cuda_pathwise.meta_bytes(Gd, P) if meta is None else meta
     scratch = scratch_bytes(Lp, n, W, Gd, P)
     smem_form = small + scratch <= SMEM_MAX
     smem = small + scratch if smem_form else small
@@ -92,20 +94,21 @@ def row_tables(dg):
 _per_sm_cache: dict = {}
 
 
-def launch_plan(dev, B, P, n, Lp, W, Gd) -> Plan:
-    """:func:`plan` on ``dev``, the occupancy from ``rgt_pathwise_win_per_sm``."""
+def launch_plan(dev, B, P, n, Lp, W, Gd, entry="rgt_pathwise_win_per_sm", meta=None) -> Plan:
+    """:func:`plan` on ``dev``, the occupancy from ``entry`` (K10's, or
+    S2's with its ``meta`` bytes of row tables)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def per_sm(threads, smem, smem_form):
-        key = (dev.index, threads, smem, smem_form)
+        key = (entry, dev.index, threads, smem, smem_form)
         if key not in _per_sm_cache:
             with torch.cuda.device(dev):
-                v = _kernels.load().rgt_pathwise_win_per_sm(threads, smem, int(smem_form))
-            _kernels.check(-v if v < 0 else 0, "rgt_pathwise_win_per_sm")
+                v = getattr(_kernels.load(), entry)(threads, smem, int(smem_form))
+            _kernels.check(-v if v < 0 else 0, entry)
             _per_sm_cache[key] = v
         return _per_sm_cache[key]
 
-    return plan(B, P, n, Lp, W, Gd, sms, per_sm)
+    return plan(B, P, n, Lp, W, Gd, sms, per_sm, meta)
 
 
 def fill_pathwise_win_cuda(dg, table, seq, L, W, rmin):

@@ -14,6 +14,8 @@ Counterpart of ``recgraph_tpu/ops/pathwise_engine.py``:
 - ``walk_pathwise`` ports ``_walk_pathwise`` (``:364-462``) as a
   host-driven loop of batched torch ops;
 - ``_record_from_walk`` / ``_gaf_from_walk`` (``:483-525, 738-756``);
+- ``_rescore_walk`` (``:532-563``), the exact rescore the windowed
+  mode-8 route of ``recombination_engine`` accepts a forward walk by;
 - ``run_batch_walks``, ``_run_batch_walks_full`` and
   ``_run_batch_walks_win`` (``:574-918``): chunking, the walk batched
   across fill chunks, and the mode-4 long-read W ladder with its
@@ -427,6 +429,34 @@ def fetch_walk(dirs, rows, steps, stop_i, max_steps):
         steps, stop_i = steps.cpu().numpy(), stop_i.cpu().numpy()
     dirs, rows = traceback_engine.unpack_walk(pk)
     return dirs, rows, steps, stop_i
+
+
+def _rescore_walk(dirs_b, rows_b, ns, j0, codes, seqc, table, nstart, covered) -> int:
+    """Exact, plane-independent score of an emitted forward walk
+    (``_rescore_walk``, JAX ``pathwise_engine.py:532-563``): the sum of
+    its per-step increments down to the first zero-case restart cell (a
+    node start whose chosen path has no covered predecessor) or its end.
+    On rep lanes it equals the plane value the walk started from; on
+    follower lanes the replayed values need not telescope along the
+    recomputed walk, so the windowed mode-8 route uses a mismatch only
+    as a conservative refusal (the read goes up the W ladder), never as
+    proof of a wrong record.  Host numpy."""
+    s = 0
+    j = int(j0)
+    for k in range(int(ns)):
+        i = int(rows_b[k])
+        c = int(dirs_b[k])
+        if i > 0 and j > 0 and nstart[i] and not covered[i]:
+            return s
+        if c in (1, 2):
+            s += int(table[codes[i], seqc[j]])
+            j -= 1
+        elif c == 4:
+            s += int(table[codes[i], GAP])
+        else:
+            s += int(table[GAP, seqc[j]])
+            j -= 1
+    return s
 
 
 # ---------------------------------------------------------------------------

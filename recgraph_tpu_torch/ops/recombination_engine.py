@@ -24,24 +24,37 @@ Counterpart of ``recgraph_tpu/ops/recombination_engine.py``
 - ``walk_reverse`` ports ``_walk_reverse`` (``:984-1077``) as a
   host-driven loop of batched torch ops;
 - ``_walk_pieces``, ``_gaf_rec_from_walks``, ``_records_from_rec_walks``
-  (``:1080-1143, :1337-1387``) and ``run_batch_walks`` (``:1145-1334``).
+  (``:1080-1143, :1337-1387``) and ``run_batch_walks`` (``:1145-1334``);
+- ``_run_split`` (``:768-801``), the dispatcher: with
+  ``RECGRAPH_SPLIT_FULL`` set, or where Lp - 2 <= 8, the full column scan
+  ``split_search_full`` (``_split_search_fn``, ``:204-337``, torch ops on
+  either device, independent of S1) over ``_SplitGeometry.planes``
+  (``:455-475``) with ``_get_split``'s chunk rule (``split_chunk``) and
+  ``_candidate_columns`` (``:384-421``);
+- the opt-in windowed mode-8 pair (``RECGRAPH_REC_WINDOW=1``):
+  ``_run_batch_walks_win8`` (``:1414-1658``) with its gate, the exact
+  acceptance rescore ``_rescore_walk_rev`` (``:1390-1411``) and
+  ``walk_reverse(..., ws=)``; its fills are ``pathwise_window`` (K10) and
+  ``recombination_window`` (S2).  The windowed walk reads the read at its
+  own width, where the JAX engine clamps to the window's (ROADMAP F4).
 
-Not ported: ``run_batch`` (``:855-983``, not reached by the CLI), the
-``RECGRAPH_SPLIT_FULL`` full-scan cross-check and the opt-in windowed
-mode-8 pair (``RECGRAPH_REC_WINDOW``).
+Not ported: ``run_batch`` (``:855-983``, not reached by the CLI).
 """
 
 from __future__ import annotations
 
+import os
+import sys
+
 import numpy as np
 import torch
 
-from .. import metrics
+from .. import metrics, scoring
 from ..io.gaf import GafRecord
 from ..metrics import phase
 from ..oracle.recombination import _fmt_f32, get_node_offset, get_rec_path_len_start_end
 from ..scoring import GAP, SENTINEL
-from . import cuda_pathwise_rev, cuda_split_summary, traceback_engine
+from . import cuda_pathwise_rev, cuda_split_summary, pathwise_engine, traceback_engine
 from .encode import encode_reads, path_device_graph, rev_device_graph
 from .pathwise_engine import (
     WALK_BYTES, _cigar, _end_meta, _extract_plane, _final_column, _gaf_from_walk,
@@ -207,6 +220,18 @@ class _SplitGeometry:
             return 0
         return int(abs(int(self.dfs[i]) - int(self.dfs[k]))
                    + abs(int(self.dfe[i]) - int(self.dfe[k])))
+
+    def planes(self, base_rec_cost, multi_rec_cost, device):
+        """The dense interior planes of the full scan (``_SplitGeometry.planes``,
+        :455-475): (penalty f32, diff_node, onedge) [I, I] on ``device``,
+        built only on that route."""
+        disp = (np.abs(self.dfs_i[:, None] - self.dfs_i[None, :])
+                + np.abs(self.dfe_i[:, None] - self.dfe_i[None, :]))
+        penalty = np.float32(base_rec_cost) + np.float32(multi_rec_cost) * disp.astype(np.float32)
+        diff_node = self.ids_i[:, None] != self.ids_i[None, :]
+        onedge = self.fw_edge[:, None] & self.rv_edge[None, :]
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                     for x in (penalty, diff_node, onedge))
 
     def tensors(self, device) -> dict:
         """The vectors on ``device`` (dfs/dfe as f32), ``edge0``, the flat
@@ -483,6 +508,141 @@ def split_search_best(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
     return unpack_split(out.cpu().numpy())
 
 
+# the full scan's candidate plane a chunk at most (``_get_split``, :340-354)
+SPLIT_PLANE_BYTES = 1 << 28
+
+
+def split_chunk(I: int, B: int) -> int:
+    """The reverse rows Tc a chunk of the full scan's candidate plane holds
+    (``_get_split``): all I while B x I x I f32 fit ``SPLIT_PLANE_BYTES``,
+    else a multiple of 128, at least 128."""
+    if 4 * B * I * I <= SPLIT_PLANE_BYTES:
+        return I
+    return max(128, (SPLIT_PLANE_BYTES // (4 * B * I)) // 128 * 128)
+
+
+def _candidate_columns(inputs, geom, base_rec_cost, multi_rec_cost, active_np, init_best, Lp):
+    """The ascending columns that can still affect the full scan
+    (``_candidate_columns``, :384-421): those where some read's column
+    bound (``_split_ub``: S1's bound entry on the card) minus R, plus 0.5,
+    reaches its baseline, padded with 0 (never active) to a power of two
+    of at least 4; None (scan every interior column) when Lp - 2 <= 8 or
+    when they are half the columns or more.  A column below every read's
+    baseline can never be taken, so dropping it leaves the scan's state,
+    tie decisions included, unchanged."""
+    cols_full = np.arange(1, Lp - 1, dtype=np.int32)
+    if Lp - 2 <= 8:
+        return None
+    ub = _split_ub(inputs, geom, multi_rec_cost).cpu().numpy() - np.float32(base_rec_cost)
+    keep = (ub + 0.5 >= init_best[:, None]) & active_np
+    cols = np.flatnonzero(keep.any(axis=0)).astype(np.int32)
+    if len(cols) * 2 >= len(cols_full):
+        return None
+    C = 1 << max(int(np.ceil(np.log2(max(len(cols), 1)))), 2)
+    out = np.zeros(C, dtype=np.int32)
+    out[: len(cols)] = cols
+    return out
+
+
+def split_search_full(cols, inputs, planes, active_np, init_best, Tc=None):
+    """The full column scan of best_alignment (``_split_search_fn``,
+    :204-337) as torch ops on the summaries' device: for each column of
+    ``cols`` in order, the I x I candidate plane
+
+        cand[i, k] = (f32(fmax[i]) + f32(rmax[k])) - penalty[i, k],
+
+    valid where the node ids differ, the paths differ and both summaries
+    are on their paths, evaluated ``Tc`` reverse rows at a time, its max,
+    first flat index at the max and first onedge flat index at the max
+    combined across chunks, then the reference's take/tie rule (a strict
+    improvement, or an equal score displaced only by the first onedge
+    candidate).  Flat indices are int64 (the JAX scan's int32 wrap past
+    46,340 interior rows).  Columns where no read is active are skipped:
+    nothing is taken there.  ``planes``: ``_SplitGeometry.planes``.
+    Returns numpy (best f32, taken, fen, rsn, fp, rp, col), each [B]."""
+    fmax, farg, vf, rmax, rarg, vr = inputs
+    B, I, Lp = fmax.shape
+    penalty, diff_node, onedge = planes
+    Tc = I if Tc is None else Tc
+    dev = fmax.device
+    big = 1 << 62
+    best = torch.from_numpy(init_best.astype(np.float32)).to(dev)
+    edge_state = torch.zeros(B, dtype=torch.bool, device=dev)
+    taken = torch.zeros(B, dtype=torch.bool, device=dev)
+    fen, rsn, fp, rp, col = (torch.zeros(B, dtype=torch.int64, device=dev) for _ in range(5))
+    act = torch.from_numpy(np.ascontiguousarray(active_np)).to(dev)
+    bi = torch.arange(B, device=dev)
+    # each chunk's flat indices i I + k, increasing along the chunk's
+    # row-major layout: the first position at a max has the least index
+    chunks = [(k0, min(k0 + Tc, I)) for k0 in range(0, I, Tc)]
+    rows = torch.arange(I, device=dev)[:, None] * I
+    flats = [(rows + torch.arange(k0, k1, device=dev)).reshape(-1) for k0, k1 in chunks]
+    edges = [onedge[:, k0:k1].reshape(1, -1) for k0, k1 in chunks]
+    for j in (int(c) for c in cols):
+        if not active_np[:, j].any():
+            continue
+        fv, fa, vfj = fmax[:, :, j].float(), farg[:, :, j], vf[:, :, j]
+        rv, ra, vrj = rmax[:, :, j].float(), rarg[:, :, j], vr[:, :, j]
+        bestv = torch.full((B,), NEGF, dtype=torch.float32, device=dev)
+        bflat = torch.full((B,), big, dtype=torch.int64, device=dev)
+        beflat = bflat.clone()
+        beany = torch.zeros(B, dtype=torch.bool, device=dev)
+        for (k0, k1), flat, edge in zip(chunks, flats, edges):
+            cv = (fv[:, :, None] + rv[:, None, k0:k1]) - penalty[None, :, k0:k1]
+            valid = (diff_node[None, :, k0:k1] & (fa[:, :, None] != ra[:, None, k0:k1])
+                     & vfj[:, :, None] & vrj[:, None, k0:k1])
+            cv = cv.masked_fill_(~valid, NEGF).reshape(B, -1)
+            cmax = cv.amax(1)
+            atm = cv == cmax[:, None]
+            fmin = flat[atm.byte().argmax(1)]   # argmax: the first maximal position
+            ate = atm & edge
+            eany = ate.any(1)
+            femin = torch.where(eany, flat[ate.byte().argmax(1)], big)
+            gtc = cmax > bestv
+            eqc = cmax == bestv
+            bflat = torch.where(gtc, fmin, torch.where(eqc, torch.minimum(bflat, fmin), bflat))
+            beflat = torch.where(gtc, femin, torch.where(eqc, torch.minimum(beflat, femin), beflat))
+            beany = torch.where(gtc, eany, beany | (eqc & eany))
+            bestv = torch.maximum(bestv, cmax)
+        flat_edge = torch.where(beany, beflat, 0)
+        flat_plain = torch.clamp(bflat, max=I * I - 1)
+        gt = bestv > best
+        take = act[:, j] & (gt | ((bestv == best) & ~edge_state & beany))
+        use_edge = torch.where(gt, beany, True)
+        flat = torch.where(use_edge, flat_edge, flat_plain)
+        ii, kk = flat // I, flat % I
+        best = torch.where(take, bestv, best)
+        edge_state = torch.where(take, use_edge, edge_state)
+        taken |= take
+        fen = torch.where(take, ii + 1, fen)
+        rsn = torch.where(take, kk + 1, rsn)
+        fp = torch.where(take, farg[bi, ii, j].long(), fp)
+        rp = torch.where(take, rarg[bi, kk, j].long(), rp)
+        col = torch.where(take, j, col)
+    return (best.cpu().numpy(), taken.cpu().numpy(),
+            *(x.to(_I32).cpu().numpy() for x in (fen, rsn, fp, rp, col)))
+
+
+def _run_split(inputs, geom, geom_t, active_np, init_best, base_rec_cost, multi_rec_cost, n,
+               Lp):
+    """The split search dispatcher (``_run_split``, :768-801): the bound-
+    guided search (``split_search_best``: S1 on the card) unless
+    ``RECGRAPH_SPLIT_FULL`` is set or Lp - 2 <= 8, where the full column
+    scan runs over the dense planes (``split_search_full`` on the columns
+    of ``_candidate_columns``), kept as a cross-check independent of S1.
+    Returns numpy (best f32, taken, fen, rsn, fp, rp, col), each [B]."""
+    if Lp - 2 > 8 and not os.environ.get("RECGRAPH_SPLIT_FULL"):
+        return split_search_best(inputs, geom, geom_t, active_np, init_best, base_rec_cost,
+                                 multi_rec_cost)
+    planes = geom.planes(base_rec_cost, multi_rec_cost, inputs[0].device)
+    cols = _candidate_columns(inputs, geom, base_rec_cost, multi_rec_cost, active_np,
+                              init_best, Lp)
+    if cols is None:
+        cols = np.arange(1, Lp - 1, dtype=np.int32)
+    return split_search_full(cols, inputs, planes, active_np, init_best,
+                             split_chunk(n - 2, active_np.shape[0]))
+
+
 def _baseline(mode, finalcol, g):
     """No-recombination best score and path for a batch (:777-800):
     finalcol int [B, P, n] -> (f32[B], int32[B]).  First-max tie order:
@@ -527,7 +687,7 @@ def _walk_starts(mode, g, finalcol, taken, fen, rec_col, fp_final, L):
 
 
 def walk_reverse(plane, seq, L, table, node_start_rev, codes, succ_of_rp, start_i, start_j,
-                 global_mode, max_steps):
+                 global_mode, max_steps, ws=None):
     """Batched traceback over reverse best-path planes (recombination_
     output.rs:39-98, 389-449): from the split point towards the sinks,
     i -> its successor on the chosen path (``succ_of_rp``, -1 off-path)
@@ -535,15 +695,28 @@ def walk_reverse(plane, seq, L, table, node_start_rev, codes, succ_of_rp, start_
     iteration; lanes are tested for the end every ``CHECK_EVERY``
     iterations.  Returns (dirs int32[B, max_steps + 8] with -1 past each
     walk, rows, steps int32[B], rev_ending_node int32[B]: the row of the
-    last main-loop cell, :481)."""
+    last main-loop cell, :481).
+
+    ws (optional, int32[B, n]): per-row window starts of windowed planes
+    [B, n, W] (``recombination_window``): column j of row i reads
+    plane[b, i, j - ws[b, i]], NEG outside the window.  The read is
+    indexed at its own width, seq[min(j + 1, Lp - 1)], also on windowed
+    planes (the JAX engine clamps j + 1 to the plane's width there,
+    ROADMAP F4)."""
     B, n, W = plane.shape
     dev = plane.device
     pf = plane.reshape(B, n * W)
     s64 = seq.long()
     tab = table.to(dev, _I32)
+    ws64 = None if ws is None else ws.long()
 
     def at(i, j):
-        return pf.gather(1, (i * W + j).clamp(0, n * W - 1)[:, None])[:, 0]
+        if ws64 is None:
+            return pf.gather(1, (i * W + j).clamp(0, n * W - 1)[:, None])[:, 0]
+        i = i.clamp(max=n - 1)   # row n (past the sink) is read only by finished lanes
+        rel = j - ws64.gather(1, i[:, None])[:, 0]
+        v = pf.gather(1, (i * W + rel.clamp(0, W - 1))[:, None])[:, 0]
+        return torch.where((rel >= 0) & (rel < W), v, NEG)
 
     i = start_i.long()
     j = start_j.long()
@@ -571,7 +744,7 @@ def walk_reverse(plane, seq, L, table, node_start_rev, codes, succ_of_rp, start_
         succ = torch.where(is_end & covered, succ_e, i + 1)
         srow = torch.where(is_end, succ_e.clamp(min=0), i + 1)
         code_i = codes[i].long()
-        rseq_j = s64.gather(1, (j + 1).clamp(max=W - 1)[:, None])[:, 0]
+        rseq_j = s64.gather(1, (j + 1).clamp(max=s64.shape[1] - 1)[:, None])[:, 0]
         zero_case = is_end & ~covered
         d = torch.where(zero_case, 0, at(srow, j + 1) + tab[code_i, rseq_j])
         u = torch.where(zero_case, 0, at(srow, j) + tab[code_i, GAP])
@@ -671,16 +844,26 @@ def _records_from_rec_walks(seqs, g, geom, fp_final, rp_final, start_i, score, b
 
 
 def run_batch_walks(mode, sequences, g, rg, sm, base_rec_cost, multi_rec_cost, rbw, device,
-                    chunk_bytes=None) -> list[GafRecord]:
+                    chunk_bytes=None, no_window=False) -> list[GafRecord]:
     """Modes 8/9 with on-device traceback.
 
     Per fill chunk (``chunk_bytes``, default ``CHUNK_BYTES[device]``, of
     the forward and reverse planes together): encode; the forward fill
     (mode-4 recurrence for 8, mode-5 for 9) and the reverse fill; the
     final column and the baseline; the per-cell best paths; the split
-    search; the two best-path planes, after which the full planes are
-    freed.  The planes wait for one forward and one reverse walk loop
-    over every chunk that fits ``WALK_BYTES``.
+    search (``_run_split``); the two best-path planes, after which the
+    full planes are freed.  The planes wait for one forward and one
+    reverse walk loop over every chunk that fits ``WALK_BYTES``.
+
+    Mode 8 with ``RECGRAPH_REC_WINDOW=1`` on reads of at least
+    ``pathwise_engine.LONG_READ_LP`` columns, where the packed chain fits
+    (``pathwise_engine._fits``), takes the windowed pair instead
+    (``_run_batch_walks_win8``; ``no_window`` refuses it).  It is opt-in:
+    the split search reads every plane cell, and windowed follower cells
+    can over- and under-estimate; the exit guard and the exact acceptance
+    rescores keep every record a valid alignment with its true score, but
+    an underestimate can hide the optimum and emit a lower-scoring one.
+    Mode 9 never windows (its endings make the exit bound vacuous).
     """
     if mode not in (8, 9):
         raise ValueError(f"recombination modes are 8 and 9, got {mode}")
@@ -694,6 +877,11 @@ def run_batch_walks(mode, sequences, g, rg, sm, base_rec_cost, multi_rec_cost, r
     geom = _SplitGeometry(g, rg)
     geom_t = geom.tensors(device)
     Lp_all = max(len(s) for s in sequences)
+    if (mode == 8 and not no_window and os.environ.get("RECGRAPH_REC_WINDOW") == "1"
+            and pathwise_engine._fits(Lp_all, sm.table)
+            and Lp_all >= pathwise_engine.LONG_READ_LP):
+        return _run_batch_walks_win8(sequences, g, rg, sm, base_rec_cost, multi_rec_cost, rbw,
+                                     device, dg, dgr, table, geom, geom_t, chunk_bytes)
     Lp = (Lp_all + 7) // 8 * 8
     chunk = max(1, chunk_bytes // (P * n * Lp * 4 * 2))
     walk_batch = max(1, WALK_BYTES[device.type] // (2 * n * Lp * 4))
@@ -742,8 +930,9 @@ def run_batch_walks(mode, sequences, g, rg, sm, base_rec_cost, multi_rec_cost, r
         jcol = np.arange(seq.shape[1])
         active = (jcol[None, :] >= oob[:, None]) & (jcol[None, :] < (Lnp - oob)[:, None])
         with phase("split"):
-            best, taken, fen, rsn, fp, rp, rec_col = split_search_best(
-                inputs, geom, geom_t, active, init_best, base_rec_cost, multi_rec_cost)
+            best, taken, fen, rsn, fp, rp, rec_col = _run_split(
+                inputs, geom, geom_t, active, init_best, base_rec_cost, multi_rec_cost, n,
+                seq.shape[1])
         del inputs
         fp_final = np.where(taken, fp, base_paths).astype(np.int32)
         rp_final = np.where(taken, rp, base_paths).astype(np.int32)
@@ -766,3 +955,203 @@ def run_batch_walks(mode, sequences, g, rg, sm, base_rec_cost, multi_rec_cost, r
             pend_reads = 0
     flush()
     return records
+
+
+# ---------------------------------------------------------------------------
+# the opt-in windowed mode-8 pair (RECGRAPH_REC_WINDOW=1)
+# ---------------------------------------------------------------------------
+
+
+def _rescore_walk_rev(dirs_b, rows_b, ns, j0, codes, seqc, Lr, table, nstart_r, covered_r,
+                      n) -> int:
+    """Exact, plane-independent score of an emitted reverse walk (JAX
+    ``:1390-1411``, the mirror of ``pathwise_engine._rescore_walk``:
+    rev[j] = seq[j + 1], the sentinel at j = L - 1, moves go right).
+    Host numpy."""
+    s = 0
+    j = int(j0)
+    for k in range(int(ns)):
+        i = int(rows_b[k])
+        c = int(dirs_b[k])
+        if 0 < i < n - 1 and j < Lr - 1 and nstart_r[i] and not covered_r[i]:
+            return s
+        rs = int(seqc[j + 1]) if j + 1 < Lr else SENTINEL
+        if c in (1, 2):
+            s += int(table[codes[i], rs])
+            j += 1
+        elif c == 4:
+            s += int(table[codes[i], GAP])
+        else:
+            s += int(table[GAP, rs])
+            j += 1
+    return s
+
+
+def _win_summaries(Aw, ws, paths_on, Lp):
+    """The split search's summaries of windowed planes over the interior
+    rows, at full width: (max, path, valid) [B, n-2, Lp], NEG / 0 / False
+    outside the windows (``full_from_win`` of the per-cell best paths)."""
+    from .recombination_window import full_from_win
+
+    n = Aw.shape[2]
+    mx_w, arg_w = _path_argmax(Aw[:, :, 1 : n - 1])
+    wsi = ws[:, 1 : n - 1]
+    mx = full_from_win(mx_w, wsi, NEG, Lp)
+    arg = full_from_win(arg_w, wsi, 0, Lp)
+    iidx = torch.arange(n - 2, device=Aw.device)[None, :, None]
+    return mx, arg, paths_on[1 : n - 1][iidx, arg.long()] & (mx > NEG // 2)
+
+
+def _run_batch_walks_win8(sequences, g, rg, sm, base_rec_cost, multi_rec_cost, rbw, device,
+                          dg, dgr, table, geom, geom_t, chunk_bytes) -> list[GafRecord]:
+    """Mode-8 long reads: the windowed O(W)-lane fill pair with a W ladder
+    (``_run_batch_walks_win8``, JAX :1414-1658).
+
+    Per pass at width W: the forward windowed fill (K10 on the card,
+    ``pathwise_window.fill_pathwise_win_best``) and the reverse one (S2,
+    ``recombination_window.fill_pathwise_rev_win_best``); the split
+    search runs unchanged (``_run_split``) on the full-width per-cell
+    summaries of the windowed planes; a read is accepted when its best
+    strictly beats the composite exit bound (``composite_bound``, at least
+    the forward bound) and its two walks over the windowed planes rescore
+    exactly to the cells they start from (``_rescore_walk`` /
+    ``_rescore_walk_rev``; a mismatch counts in
+    ``metrics.EVENTS["rec_win_rescore"]``).  The rest double W, re-chunked
+    at every rung (2 P n W 4 + 18 n Lp bytes a read against
+    ``chunk_bytes``); reads still failing at W >= Lp rerun through the
+    full-width engine (``run_batch_walks(..., no_window=True)``), counted
+    in ``metrics.EVENTS["rec_win_fullwidth"]`` with a line on stderr.
+    Each pass walks its own reads.  The width at which a whole chunk
+    passed seeds the next ladder on the graph (``_pw_w_hint``, keyed
+    apart from mode 4's)."""
+    from . import pathwise_window
+    from . import recombination_window as rw
+
+    n, P = dg.n, dg.paths_number
+    rmin = pathwise_window.rmin_tensor(dg)
+    Lp_all = max(len(s) for s in sequences)
+    Lp = (Lp_all + 7) // 8 * 8
+    tab = np.asarray(sm.table)
+    smax = max(int(tab.max()), 0)
+    hint_key = pathwise_engine._graph_hint_key(g, dg) + ("rec8",)
+    W0 = pathwise_engine._pw_w_hint.get(hint_key, 256)
+    if W0 >= Lp_all:   # a hint from a longer-read batch
+        W0 = 256
+    max_steps = n + Lp_all + 4
+    # host metadata of the exact acceptance rescores
+    pred_f, pred_r = dg.host()["pred_of"], dgr.host()["pred_of"]
+    nstart, nstart_r = np.asarray(g.node_start), np.asarray(rg.node_start)
+    codes = np.asarray(g.codes)
+    out: dict[int, GafRecord] = {}
+
+    def win_pass(idxs, W):
+        """One fill + guard + walk pass at width W: stores the accepted
+        reads' records and returns the idxs that failed."""
+        sub = [sequences[i] for i in idxs]
+        B = len(sub)
+        with phase("encode"):
+            seq, L = encode_reads(sub, pad_to=Lp_all, device=device)
+        with phase("fill"):
+            Awf, wsf, bound_f = pathwise_window.fill_pathwise_win_best(dg, table, seq, L, W, rmin)
+            Awr, wsr, Rr = rw.fill_pathwise_rev_win_best(dgr, table, seq, L, W)
+        with phase("dispatch"):
+            fmax, farg, vf = _win_summaries(Awf, wsf, dg.paths_on, Lp)
+            rmax, rarg, vr = _win_summaries(Awr, wsr, dg.paths_on, Lp)
+            Rf = bound_f - smax * (L - 1)
+            gbound = torch.maximum(rw.composite_bound(fmax.amax(1), rmax.amax(1), Rf, Rr, L, smax),
+                                   bound_f.float())
+            fcw = pathwise_window._final_column_win(Awf, wsf, L)
+        with phase("device_wait"):
+            finalcol, gb = fcw.cpu().numpy(), gbound.cpu().numpy()
+        Lnp = L.cpu().numpy()
+        init_best, base_paths = _baseline(8, finalcol, g)
+        oob = np.maximum((Lnp * (1.0 - rbw) / 2.0).astype(np.int64), 1)
+        jcol = np.arange(Lp)
+        active = (jcol[None, :] >= oob[:, None]) & (jcol[None, :] < (Lnp - oob)[:, None])
+        inputs = (fmax, farg, vf, rmax, rarg, vr)
+        with phase("split"):
+            best, taken, fen, rsn, fp, rp, rec_col = _run_split(
+                inputs, geom, geom_t, active, init_best, base_rec_cost, multi_rec_cost, n, Lp)
+        passed = best > gb
+        if not passed.any():
+            return list(idxs)
+        fp_final = np.where(taken, fp, base_paths).astype(np.int32)
+        rp_final = np.where(taken, rp, base_paths).astype(np.int32)
+        start_i, start_j = _walk_starts(8, g, finalcol, taken, fen, rec_col, fp_final, Lnp)
+        score = finalcol[np.arange(B), fp_final, start_i]
+        # reads without a split need no reverse walk: start them where it ends
+        rs = np.where(taken, rsn, n - 1).astype(np.int32)
+        rc = np.where(taken, rec_col, Lnp - 1).astype(np.int32)
+        with phase("dispatch"):
+            fp_t, rp_t, si, sj, rs_t, rc_t = (torch.from_numpy(x).to(device) for x in (
+                fp_final, rp_final, start_i, start_j, rs, rc))
+            fplane = _extract_plane(Awf, fp_t)
+            rplane = _extract_plane(Awr, rp_t)
+            bi = torch.arange(B, device=device)
+            cj = torch.from_numpy(rec_col.astype(np.int64)).to(device)
+            fsel_d = fmax[bi, torch.from_numpy((fen.astype(np.int64) - 1).clip(0)).to(device), cj]
+            rsel_d = rmax[bi, torch.from_numpy((rsn.astype(np.int64) - 1).clip(0)).to(device), cj]
+        del Awf, Awr, inputs, fmax, farg, vf, rmax, rarg, vr
+        fwalk = _walk_and_fetch(fplane, seq, L, table, dg, fp_t, si, True, max_steps, ws=wsf,
+                                start_j=sj)
+        with phase("walk"):
+            rwalk = walk_reverse(rplane, seq, L, table, dgr.node_start, dg.codes,
+                                 dgr.pred_of.t()[rp_t.long()], rs_t, rc_t, True, max_steps,
+                                 ws=wsr)
+        rwalk = fetch_walk(*rwalk, max_steps)
+        fsel, rsel = fsel_d.cpu().numpy(), rsel_d.cpu().numpy()
+        fdirs, frows, fsteps, _ = fwalk
+        rdirs, rrows, rsteps, _ = rwalk
+        # exact acceptance rescores: a replayed follower cell can
+        # overestimate, which a guard pass alone cannot rule out
+        for b in np.flatnonzero(passed):
+            seqc = scoring.encode(sub[b])
+            claim = int(fsel[b]) if taken[b] else int(score[b])
+            ok = pathwise_engine._rescore_walk(
+                fdirs[b], frows[b], int(fsteps[b]), int(start_j[b]), codes, seqc, tab, nstart,
+                pred_f[:, fp_final[b]] >= 0) == claim
+            if ok and taken[b]:
+                ok = _rescore_walk_rev(
+                    rdirs[b], rrows[b], int(rsteps[b]), int(rec_col[b]), codes, seqc,
+                    len(sub[b]), tab, nstart_r, pred_r[:, rp_final[b]] >= 0, n) == int(rsel[b])
+            if not ok:
+                passed[b] = False
+                metrics.EVENTS["rec_win_rescore"] += 1
+        with phase("emit"):
+            recs = _records_from_rec_walks(sub, g, geom, fp_final, rp_final, start_i, score,
+                                           best, fen, rsn, fwalk, rwalk)
+        for b, i in enumerate(idxs):
+            if passed[b]:
+                out[i] = recs[b]
+        return [i for b, i in enumerate(idxs) if not passed[b]]
+
+    fullwidth_idx: list[int] = []
+    # chunk on the expected ladder width, re-chunk at every rung
+    per_read0 = 2 * P * n * min(2 * W0, Lp_all) * 4 + 18 * n * Lp_all
+    chunk = max(1, chunk_bytes // per_read0)
+    for c0 in range(0, len(sequences), chunk):
+        idxs = list(range(c0, min(c0 + chunk, len(sequences))))
+        W = W0
+        while idxs and W < Lp_all:
+            rung = max(1, chunk_bytes // (2 * P * n * W * 4 + 18 * n * Lp_all))
+            failed: list[int] = []
+            for s0 in range(0, len(idxs), rung):
+                failed.extend(win_pass(idxs[s0 : s0 + rung], W))
+            idxs = failed
+            if not idxs:
+                pathwise_engine._pw_w_hint[hint_key] = W
+            W *= 2
+        fullwidth_idx.extend(idxs)
+    if fullwidth_idx:
+        metrics.EVENTS["rec_win_fullwidth"] += len(fullwidth_idx)
+        print(
+            f"recgraph: {len(fullwidth_idx)} long read(s) exceeded the "
+            "windowed mode-8 exit bound at every W; running full-width",
+            file=sys.stderr,
+        )
+        sub = [sequences[i] for i in fullwidth_idx]
+        recs = run_batch_walks(8, sub, g, rg, sm, base_rec_cost, multi_rec_cost, rbw, device,
+                               chunk_bytes=chunk_bytes, no_window=True)
+        for i, rec in zip(fullwidth_idx, recs):
+            out[i] = rec
+    return [out[i] for i in range(len(sequences))]

@@ -121,6 +121,8 @@ def test_port_never_imports_jax(example_paths, tmp_path):
         "        importlib.import_module(m.name)\n"
         "from recgraph_tpu_torch.align.pipeline import Options, run\n"
         "assert 'recgraph_tpu_torch.ops.cuda_poa_gap_global_win' in sys.modules\n"
+        "assert 'recgraph_tpu_torch.ops.recombination_window' in sys.modules\n"
+        "assert 'recgraph_tpu_torch.ops.cuda_pathwise_rev_win' in sys.modules\n"
         "for mode in (0, 1, 2, 3, 4, 5, 8, 9):\n"
         "    buf = io.StringIO()\n"
         "    with contextlib.redirect_stdout(buf):\n"

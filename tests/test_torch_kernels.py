@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8, K10-K17 and S1 (both entries) against their
+"""The CUDA kernels K1-K8, K10-K17, S1 (both entries) and S2 against their
 plain torch versions, on the card (K7 and K8 also stand for the TPU's path-tiled K9a
 and K9b).
 
@@ -30,11 +30,12 @@ from recgraph_tpu_torch.graph.pathgraph import PathGraph
 from recgraph_tpu_torch.graph.poagraph import PoaGraph
 from recgraph_tpu_torch.io import fasta, gfa
 from recgraph_tpu_torch.ops import (
-    cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_win,
-    cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_pathwise_rev, cuda_poa_gap_local,
-    cuda_poa_global, cuda_poa_global_win, cuda_poa_local, cuda_poa_variants as cv,
-    cuda_split_summary, pathwise_engine, pathwise_gap_engine, pathwise_window, poa_engine,
-    poa_gap_engine, poa_variants as pv, recombination_engine, traceback_engine as tb,
+    cuda_gap67_fill, cuda_gap67_hardrow, cuda_pathwise, cuda_pathwise_rev_win,
+    cuda_pathwise_win, cuda_poa_gap_global, cuda_poa_gap_global_win, cuda_pathwise_rev,
+    cuda_poa_gap_local, cuda_poa_global, cuda_poa_global_win, cuda_poa_local,
+    cuda_poa_variants as cv, cuda_split_summary, pathwise_engine, pathwise_gap_engine,
+    pathwise_window, poa_engine, poa_gap_engine, poa_variants as pv, recombination_engine,
+    recombination_window, traceback_engine as tb,
 )
 from recgraph_tpu_torch.ops.encode import (
     encode_read_aux, encode_reads, path_device_graph, poa_device_graph, rev_device_graph,
@@ -784,6 +785,62 @@ def test_pathwise_rev_kernel_matches_plain_corpora(cuda, tmp_path, corpus):
     reads = fasta.get_sequences(reads_fa)[0][:8]
     for matrix in ("none", "HOXD70") if corpus == "example" else ("none",):
         _assert_rev_kernel(g, reads, matrix, cuda, (corpus, matrix), pad_to=256)
+
+
+def _rev_win_cases(name, tmp_path):
+    """S2's cases on one graph family: (graph, reads, matrix, widths)."""
+    cases = []
+    if name == "long8":
+        from make_synthetic import make
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            make(str(tmp_path), n_back=1200, n_reads=1, seed=11)
+        gfa_path = str(tmp_path / "graph.gfa")
+        reads = _long_reads(gfa_path, 8, 11) + ["$" + "ACGT" * 5]
+        cases = [(PathGraph.from_gfa(gfa.parse_gfa(gfa_path)), reads, "none", (32, 256, 1024))]
+    elif name == "example":
+        g = PathGraph.from_gfa(gfa.parse_gfa(EXAMPLE[1]))
+        reads = fasta.get_sequences(EXAMPLE[0])[0][:8]
+        cases = [(g, reads, "none", (34, 64)), (g, reads, "HOXD70", (64,))]
+    elif name == "fan40":
+        reads = ["$" + "".join(random.Random(5).choice("ACGT") for _ in range(41000))]
+        cases = [(PathGraph.from_gfa(fuzz.fan_gfa(40)), reads, "none", (1024,))]
+    else:
+        for seed in fuzz.LEAK_SEEDS:
+            gf = fuzz.fragment_gfa(seed)
+            reads = fuzz.fragment_reads(random.Random(seed * 31 + 5), gf, k=4)
+            cases.append((PathGraph.from_gfa(gf), reads, "none", (8,)))
+    return cases
+
+
+@pytest.mark.cuda
+def test_pathwise_rev_win_kernel_matches_plain(cuda, tmp_path):
+    """S2 (the reverse form of K10's kernel) against its plain version,
+    all three outputs: 8 long reads and a read shorter than the window at
+    W 32, 256 and 1,024 (windows that move, the exit account of reads
+    that strand cells); the example graph (rows of up to 9 groups) at W 34
+    (no 16-byte stores) and 64, and with HOXD70; a 41,000-bp read at
+    W 1,024 (the per-read scratch in device memory); the fragment graphs
+    whose reverse graphs have clone rows and constant-0 lanes at W 8.
+    Then the dispatcher's launch count and shape, and its refusals.  One
+    item for the four graph families, as it skips without a card."""
+    for name in ("long8", "example", "fan40", "leak"):
+        for g, reads, matrix, widths in _rev_win_cases(name, tmp_path):
+            dgr, table, seq, L = _rev_pair(g, reads, matrix, cuda)
+            table = table.to(torch.int32)
+            for W in widths:
+                ref = recombination_window.fill_pathwise_rev_win_plain(dgr, table, seq, L, W)
+                metrics.reset_phases()
+                got = recombination_window.fill_pathwise_rev_win_best(dgr, table, seq, L, W)
+                _assert_equal(got, ref, ("S2", name, matrix, W))
+                B, Lp = seq.shape
+                assert metrics.SHAPES == {(cuda_pathwise_rev_win.KERNEL, B, g.n, Lp, W,
+                                           g.paths_number): 1}
+        with pytest.raises(ValueError, match="window width"):
+            cuda_pathwise_rev_win.fill_pathwise_rev_win_cuda(dgr, table, seq, L, 4)
+        with pytest.raises(ValueError, match="reverse graph"):
+            cuda_pathwise_rev_win.fill_pathwise_rev_win_cuda(path_device_graph(g, cuda), table,
+                                                             seq, L, 8)
 
 
 @pytest.mark.cuda
